@@ -10,7 +10,8 @@ Phases, each printed on its own lines:
    in parallel, with its time and ``ptxas`` register/shared-memory use;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    first on small adversarial cases, then on the inputs the main path gives
-   it, with CUDA-event times, the plain version's time and the bound;
+   it, with CUDA-event times of device work only, the plain version's time
+   and the bound;
 4. main path: batched CSR validation of the five-endpoint gateway mix
    (B=4096 documents, max_nodes=64, linked tape) through
    ``BatchValidator.validate_ex``: docs/s, launch and encode times, launch
@@ -20,10 +21,22 @@ Phases, each printed on its own lines:
    cornered by ``validate_isolated`` while every other row stays bit-equal;
 6. profile: host milliseconds per launch in each executor phase, then one
    launch under ``torch.profiler``: device-busy share and the heaviest
-   device kernels.
+   device kernels;
+7. registry: ``AdmissionController.admit_ex`` over a ``SchemaRegistry`` of
+   the five gateway endpoints (three link groups), once per executor layout
+   (``csr``, ``dense``), on the same B=4096 requests at
+   ``batch_max_nodes=64``: median ``admit_ex`` time and requests/s, kernel
+   launches per call, the ``AdmitCounts``, host ms by phase and the
+   device-busy share of one profiled call; the verdicts are equal between
+   the layouts, to a ``device="cpu"`` registry and, where decided on the
+   batched path, to the sequential ``Validator``.  The dense kernel is held
+   against its plain version at the inputs the dense admission gives it.
 
 Any mismatch or exception exits non-zero.  The last lines are the kernels
-JSON line, the card's name and power limit, and
+JSON line (``launches`` counts the path each kernel serves: the CSR main
+path for the first two, the dense admission for ``assertion_eval``;
+``launches_by_path`` has every path's count), the card's name and power
+limit, and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device: without one, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.
@@ -31,6 +44,7 @@ no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import random
 import statistics
@@ -51,6 +65,10 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 BATCH = 4096
 MAX_NODES = 64
 TIMED_LAUNCHES = 10
+# the AdmitCounts fields that PipelineStats also counts (all but per_group)
+ADMIT_COUNT_FIELDS = ("batch_validated", "undecided", "oversize", "unroll_overflow",
+                      "fallback_validated", "rejected_guard", "error_isolated",
+                      "timed_out", "breaker_open")
 SEED = 0
 
 # the gateway's endpoint mix (benchmarks/registry.py): completions dominate,
@@ -147,14 +165,41 @@ def oracle_verdicts(names, docs, ids) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def spin_cycles_per_ms() -> float:
+    """The rate of ``torch.cuda._sleep``'s spin, read with CUDA events."""
+    cycles = 10_000_000
+    torch.cuda._sleep(cycles)  # first call: module load
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
 def device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
-    """Median CUDA-event time of ``fn`` with the 50 MB L2 flushed before
-    each call (a cold cache, as after the executor's other passes)."""
+    """Median CUDA-event time of ``fn``'s device work with the 50 MB L2
+    flushed before each call (a cold cache, as after the executor's other
+    passes).
+
+    A spin kernel (``torch.cuda._sleep``) keeps the device busy for at
+    least 1 ms and four times the host time of one call, so the host has
+    enqueued all of ``fn`` before the start event runs and the events
+    bracket device work only, not the device waiting on the Python wrapper.
+    """
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin = int(max(1.0, 4 * host_ms) * spin_cycles_per_ms())
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -163,6 +208,11 @@ def device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_times(kernel: Callable[[], Any], plain: Callable[[], Any]) -> Dict[str, float]:
+    """Device-only times of a kernel and its plain version."""
+    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain)}
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +236,7 @@ def build() -> None:
     from repro_torch.kernels.build import NVCC_FLAGS, build as build_kernels
 
     t0 = time.perf_counter()
-    results = build_kernels(["hash_match", "assertion_eval_window"])
+    results = build_kernels(["hash_match", "assertion_eval_window", "assertion_eval"])
     for r in results:
         print(f"[build] {r.name}.cu: {r.seconds:.2f} s -> {r.path.name}")
         for line in r.log.splitlines():
@@ -216,11 +266,40 @@ def _check_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return float(err)
 
 
+def _node_cols(rng: np.random.Generator, pool: np.ndarray, n: int, num=None, ntype=None):
+    return {
+        "type": ntype if ntype is not None else rng.integers(0, 7, n),
+        "is_int": rng.integers(0, 2, n),
+        "num": num if num is not None else rng.normal(0, 10, n),
+        "size": rng.integers(0, 12, n),
+        "acquired": rng.integers(-(2**31), 2**31, n),
+        "str_hash": pool[rng.integers(0, len(pool), n)],
+        "str_prefix": rng.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(np.uint32),
+    }
+
+
+def _to_cuda(cols: dict, floats=("num", "f0")) -> Dict[str, torch.Tensor]:
+    """numpy columns -> CUDA tensors: floats as float32, uint32 words as
+    int32 views, other integers as int32."""
+    out = {}
+    for k, v in cols.items():
+        v = np.asarray(v)
+        if k in floats:
+            v = v.astype(np.float32)
+        elif v.dtype == np.uint32:
+            v = v.view(np.int32)
+        else:
+            v = v.astype(np.int64).astype(np.int32)
+        out[k] = torch.from_numpy(np.ascontiguousarray(v)).cuda()
+    return out
+
+
 def adversarial_cases() -> int:
-    """Small edge cases for both kernels; returns the number checked."""
+    """Small edge cases for the three kernels; returns the number checked."""
     from repro_torch.core.tape import AOP
     from repro_torch.kernels import ref
-    from repro_torch.kernels.assertion_eval import assertion_eval_window_cuda
+    from repro_torch.kernels.assertion_eval import assertion_eval_cuda
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_cuda
     from repro_torch.kernels.hash_match import hash_match_cuda
 
     rng = np.random.default_rng(SEED)
@@ -251,15 +330,7 @@ def adversarial_cases() -> int:
     # NUM_MULTIPLE (quotients at the 0.25 / 1e-6 tolerance), STR_PREFIX
     # (i0 from -2 to 12) and OBJ_HAS_SLOT (shifts outside 0..31)
     def case(n: int, w: int, ops, f0=None, i0=None, num=None, ntype=None):
-        nodes = {
-            "type": ntype if ntype is not None else rng.integers(0, 7, n),
-            "is_int": rng.integers(0, 2, n),
-            "num": num if num is not None else rng.normal(0, 10, n),
-            "size": rng.integers(0, 12, n),
-            "acquired": rng.integers(-(2**31), 2**31, n),
-            "str_hash": pool[rng.integers(0, len(pool), n)],
-            "str_prefix": rng.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(np.uint32),
-        }
+        nodes = _node_cols(rng, pool, n, num=num, ntype=ntype)
         win = {
             "op": rng.choice(np.asarray(ops), (n, w)),
             "f0": f0 if f0 is not None else rng.normal(0, 5, (n, w)),
@@ -273,21 +344,7 @@ def adversarial_cases() -> int:
         same = rng.random((n, w)) < 0.5
         win["u0"] = np.where(same, nodes["str_prefix"][:, :1], win["u0"])
         win["hash"] = np.where(same[..., None], nodes["str_hash"][:, None, :], win["hash"])
-
-        def dev(cols, floats):
-            out = {}
-            for k, v in cols.items():
-                v = np.asarray(v)
-                if k in floats:
-                    v = v.astype(np.float32)
-                elif v.dtype == np.uint32:
-                    v = v.view(np.int32)
-                else:
-                    v = v.astype(np.int64).astype(np.int32)
-                out[k] = torch.from_numpy(np.ascontiguousarray(v)).cuda()
-            return out
-
-        nd, wd = dev(nodes, {"num"}), dev(win, {"f0"})
+        nd, wd = _to_cuda(nodes), _to_cuda(win)
         _check_equal(f"assertion_eval_window n={n} w={w} ops={list(ops)[:3]}...",
                      assertion_eval_window_cuda(nd, wd), ref.assertion_eval_window_ref(nd, wd))
 
@@ -310,32 +367,90 @@ def adversarial_cases() -> int:
     case(n, w, [AOP.OBJ_HAS_SLOT, AOP.TYPE_MASK], i0=rng.integers(-40, 80, (n, w)),
          ntype=rng.integers(-2, 40, n))
     count += 1
+
+    # assertion_eval (dense): ragged N and A around the 64 x 128 tile, every
+    # op code and op -1 rows, f0 = 0, prefix lengths and shifts outside 0..31
+    def dense_case(n: int, a: int, ops, f0=None, i0=None, num=None, ntype=None):
+        nodes = _node_cols(rng, pool, n, num=num, ntype=ntype)
+        src = rng.integers(0, n, a)  # half the rows copy a node's prefix / hash
+        same = rng.random(a) < 0.5
+        rows = {
+            "op": rng.choice(np.asarray(ops), a),
+            "f0": f0 if f0 is not None else rng.choice([0.0, 0.01, 0.5, 2.0, -3.0], a),
+            "i0": i0 if i0 is not None else rng.integers(-2, 40, a),
+            "i1": rng.integers(0, 2, a),
+            "u0": np.where(same, nodes["str_prefix"][src, 0], rng.integers(
+                0, 2**32, a, dtype=np.uint64).astype(np.uint32)).astype(np.uint32),
+            "u1": rng.integers(0, 2**32, a, dtype=np.uint64).astype(np.uint32),
+            "hash": np.where(same[:, None], nodes["str_hash"][src],
+                             pool[rng.integers(0, len(pool), a)]),
+        }
+        nd, rd = _to_cuda(nodes), _to_cuda(rows)
+        _check_equal(f"assertion_eval n={n} a={a} ops={list(ops)[:3]}...",
+                     assertion_eval_cuda(nd, rd), ref.assertion_eval_ref(nd, rd))
+
+    for n, a in [(1, 1), (1, 255), (255, 257), (257, 255), (4099, 1), (65, 129), (3, 300)]:
+        dense_case(n, a, all_ops)
+        count += 1
+    n = 4096
+    f0 = rng.choice([0.01, 0.1, 0.5, 1.0, 2.0, 3.0, 0.0, 1e-3, 7.5], 64)
+    k = rng.integers(-600000, 600000, n).astype(np.float64)
+    eps = rng.choice([0.0, 1e-7, 5e-7, 1e-6, 2e-6, 0.25, 0.2499, 0.2501, 0.5], n)
+    dense_case(n, 64, [AOP.NUM_MULTIPLE], f0=f0, num=(k + eps) * rng.choice(f0[f0 != 0], n),
+               ntype=np.full(n, 3))
+    dense_case(n, 64, [AOP.STR_PREFIX], i0=rng.integers(-2, 13, 64), ntype=np.full(n, 4))
+    dense_case(n, 64, [AOP.OBJ_HAS_SLOT, AOP.TYPE_MASK], i0=rng.integers(-40, 80, 64),
+               ntype=rng.integers(-2, 40, n))
+    count += 3
     return count
 
 
-def capture_main_inputs(bv, table, ids) -> Dict[str, tuple]:
-    """The exact inputs one main-path launch gives each kernel."""
+KERNELS = ("hash_match", "assertion_eval_window", "assertion_eval")
+
+
+def capture_kernel_inputs(run: Callable[[], Any]) -> Dict[str, List[tuple]]:
+    """The exact inputs ``run()`` gives each kernel entry point, per call."""
     from repro_torch.kernels import ops
 
-    captured: Dict[str, tuple] = {}
-    originals = {"hash_match": ops.hash_match, "assertion_eval_window": ops.assertion_eval_window}
+    captured: Dict[str, List[tuple]] = {name: [] for name in KERNELS}
+    originals = {name: getattr(ops, name) for name in KERNELS}
 
     def recorder(name):
         def record(*args):
-            if name == "assertion_eval_window":
+            if name != "hash_match":
                 args = (ops._with_acquired(args[0]), args[1])
-            captured[name] = args
+            captured[name].append(args)
             return originals[name](*args)
         return record
 
-    for name in originals:
+    for name in KERNELS:
         setattr(ops, name, recorder(name))
     try:
-        bv.validate_ex(table, ids)
+        run()
     finally:
         for name, fn in originals.items():
             setattr(ops, name, fn)
     return captured
+
+
+def capture_main_inputs(bv, table, ids) -> Dict[str, tuple]:
+    """The exact inputs one main-path launch gives each kernel."""
+    captured = capture_kernel_inputs(lambda: bv.validate_ex(table, ids))
+    return {name: calls[-1] for name, calls in captured.items() if calls}
+
+
+def launch_counts() -> Dict[str, int]:
+    from repro_torch.kernels import assertion_eval, assertion_eval_window, hash_match
+
+    return {"hash_match": hash_match.launches,
+            "assertion_eval_window": assertion_eval_window.launches,
+            "assertion_eval": assertion_eval.launches}
+
+
+def zero_launch_counts() -> None:
+    from repro_torch.kernels import assertion_eval, assertion_eval_window, hash_match
+
+    hash_match.launches = assertion_eval_window.launches = assertion_eval.launches = 0
 
 
 def hash_match_at_main(args) -> Dict[str, Any]:
@@ -355,16 +470,15 @@ def hash_match_at_main(args) -> Dict[str, Any]:
     # first match (row `got`) or running over all M rows
     scanned = torch.where(got >= 0, got + 1, m)[q_owner != -1].sum().item()
     nops = 9 * int(scanned)
-    ms = device_ms(lambda: hash_match_cuda(*args))
-    plain_ms = device_ms(lambda: ref.hash_match_ref(*args))
+    times = kernel_times(lambda: hash_match_cuda(*args), lambda: ref.hash_match_ref(*args))
     return _kernel_row("hash_match", "src/repro/kernels/hash_match.py:78",
-                       "src/repro_torch/csrc/hash_match.cu", err, ms, plain_ms,
+                       "src/repro_torch/csrc/hash_match.cu", err, times,
                        nbytes, nops, f"N={n} M={m}")
 
 
 def assertion_eval_window_at_main(args) -> Dict[str, Any]:
     from repro_torch.kernels import ref
-    from repro_torch.kernels.assertion_eval import assertion_eval_window_cuda
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_cuda
 
     node_cols, w_cols = args
     n, w = w_cols["op"].shape
@@ -380,23 +494,49 @@ def assertion_eval_window_at_main(args) -> Dict[str, Any]:
     nbytes = 4 * n * w + 52 * n_live + 60 * n_nodes + n * w
     # operations: about ten per live slot (the selected op's compares)
     nops = 10 * n_live
-    ms = device_ms(lambda: assertion_eval_window_cuda(node_cols, w_cols))
-    plain_ms = device_ms(lambda: ref.assertion_eval_window_ref(node_cols, w_cols))
+    times = kernel_times(lambda: assertion_eval_window_cuda(node_cols, w_cols),
+                         lambda: ref.assertion_eval_window_ref(node_cols, w_cols))
     return _kernel_row("assertion_eval_window", "src/repro/kernels/assertion_eval.py:350",
-                       "src/repro_torch/csrc/assertion_eval_window.cu", err, ms, plain_ms,
+                       "src/repro_torch/csrc/assertion_eval_window.cu", err, times,
                        nbytes, nops, f"N={n} W={w}")
 
 
-def _kernel_row(name, replaces, source, err, ms, plain_ms, nbytes, nops, shape):
+def assertion_eval_at_main(calls) -> Dict[str, Any]:
+    """Every dense call of one registry admission against the plain version;
+    the largest call (by N x A) is timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assertion_eval import assertion_eval_cuda
+
+    err = 0.0
+    for node_cols, asrt_cols in calls:
+        err = max(err, _check_equal(
+            "assertion_eval at the dense admission's inputs",
+            assertion_eval_cuda(node_cols, asrt_cols), ref.assertion_eval_ref(node_cols, asrt_cols)))
+    node_cols, asrt_cols = max(
+        calls, key=lambda c: c[0]["type"].shape[0] * c[1]["op"].shape[0])
+    n, a = node_cols["type"].shape[0], asrt_cols["op"].shape[0]
+    # bytes: each output byte written once, each node's 60 and each row's
+    # 56 operand bytes read once
+    nbytes = n * a + 60 * n + 56 * a
+    # operations: about ten per element of a live row (op >= 0)
+    nops = 10 * n * int((asrt_cols["op"] >= 0).sum().item())
+    times = kernel_times(lambda: assertion_eval_cuda(node_cols, asrt_cols),
+                         lambda: ref.assertion_eval_ref(node_cols, asrt_cols))
+    return _kernel_row("assertion_eval", "src/repro/kernels/assertion_eval.py:227",
+                       "src/repro_torch/csrc/assertion_eval.cu", err, times,
+                       nbytes, nops, f"N={n} A={a}, {len(calls)} calls checked")
+
+
+def _kernel_row(name, replaces, source, err, times, nbytes, nops, shape):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / CUDA_CORE_OPS_PER_S * 1e3
     bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
-    print(f"[kernels] {name} at the main path's inputs ({shape}): equal; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-          f"({nbytes} B at 3.35 TB/s, {nops} ops at 67 T/s)")
+    print(f"[kernels] {name} at the main path's inputs ({shape}): equal; kernel "
+          f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B at 3.35 TB/s, {nops} ops at 67 T/s)")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "launches": 0, "max_abs_err": err, **times,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": shape, "bytes": nbytes, "ops": nops,
     }
@@ -404,25 +544,23 @@ def _kernel_row(name, replaces, source, err, ms, plain_ms, nbytes, nops, shape):
 
 def main_path(linked, names, docs, ids, table) -> Dict[str, Any]:
     from repro_torch.core.batch_executor import BatchValidator
-    from repro_torch.kernels import assertion_eval as ae_mod
-    from repro_torch.kernels import hash_match as hm_mod
 
     bv = BatchValidator(linked)  # the default device: cuda
     bv.validate_ex(table, ids)  # first launch under this shape (allocator growth)
     torch.cuda.synchronize()
 
-    hm_mod.launches = 0
-    ae_mod.launches = 0
+    zero_launch_counts()
     times = []
     results = []
     for _ in range(TIMED_LAUNCHES):
         t0 = time.perf_counter()
         results.append(bv.validate_ex(table, ids))
         times.append(time.perf_counter() - t0)
-    launches = {"hash_match": hm_mod.launches, "assertion_eval_window": ae_mod.launches}
-    for name, count in launches.items():
-        if count != TIMED_LAUNCHES:
-            raise AssertionError(f"{name}: {count} launches in {TIMED_LAUNCHES} batches")
+    launches = launch_counts()
+    want = {"hash_match": TIMED_LAUNCHES, "assertion_eval_window": TIMED_LAUNCHES,
+            "assertion_eval": 0}
+    if launches != want:
+        raise AssertionError(f"launches in {TIMED_LAUNCHES} batches: {launches}, want {want}")
     valid, decided, frontier = results[0]
     for v, d, f in results[1:]:
         if not (np.array_equal(v, valid) and np.array_equal(d, decided)
@@ -444,6 +582,7 @@ def main_path(linked, names, docs, ids, table) -> Dict[str, Any]:
     launch_ms = statistics.median(times) * 1e3
     return {
         "bv": bv,
+        "oracle": oracle,
         "valid": valid, "decided": decided, "frontier": frontier,
         "launches": launches,
         "launch_ms": launch_ms,
@@ -480,31 +619,32 @@ def isolation(bv, table, ids, clean) -> int:
     return poison
 
 
-def host_phases(bv, table, ids, reps: int = 5) -> Dict[str, float]:
-    """Host milliseconds per launch in each executor phase (``obs.profile``,
-    exclusive times): the dispatch cost of the eager launch, stage by
-    stage; ``executor.sync`` is the wait for the device at the end."""
+def host_phases(run: Callable[[], Any], tag: str, reps: int = 5) -> Dict[str, float]:
+    """Host milliseconds per call of ``run`` in each profiled phase
+    (``obs.profile``, exclusive times).  For an executor launch the phases
+    are the dispatch cost of the eager launch, stage by stage, and
+    ``executor.sync`` is the wait for the device at the end."""
     from repro_torch.obs.profile import Profiler
 
     with Profiler() as prof:
         for _ in range(reps):
-            bv.validate_ex(table, ids)
+            run()
     out = {name: st.self_ns / reps / 1e6 for name, st in prof.stats().items()}
-    print("[host] per launch, host ms by executor phase: " + ", ".join(
-        f"{name.split('.', 1)[1]} {ms:.3f}" for name, ms in sorted(out.items())))
+    print(f"[{tag}] per call, host ms by phase: " + ", ".join(
+        f"{name} {ms:.3f}" for name, ms in sorted(out.items(), key=lambda kv: -kv[1])))
     return out
 
 
-def profile(bv, table, ids) -> Dict[str, Any]:
-    """One launch under torch.profiler: device-busy time and top kernels."""
+def profile(run: Callable[[], Any], tag: str) -> Dict[str, Any]:
+    """One call of ``run`` under torch.profiler: device-busy time and top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    bv.validate_ex(table, ids)
+    run()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        bv.validate_ex(table, ids)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels and copies): the CPU-side aten ops
@@ -519,15 +659,103 @@ def profile(bv, table, ids) -> Dict[str, Any]:
     calls = sum(r[1] for r in rows)
     copy_ms = sum(r[0] for r in rows if "Memcpy" in r[2])
     if busy_ms <= 0:
-        print("[profile] the profiler recorded no device time: device busy share not measured")
+        print(f"[{tag}] the profiler recorded no device time: device busy share not measured")
     else:
-        print(f"[profile] one launch under the profiler: wall {wall_ms:.3f} ms, device busy "
+        print(f"[{tag}] one call under the profiler: wall {wall_ms:.3f} ms, device busy "
               f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of the wall), {calls} device "
               f"kernels and copies, of which copies {copy_ms:.3f} ms")
         for ms, count, key in rows[:10]:
-            print(f"[profile]   {ms:8.4f} ms  x{count:<4d} {key[:90]}")
+            print(f"[{tag}]   {ms:8.4f} ms  x{count:<4d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_calls": calls,
             "copy_ms": copy_ms}
+
+
+def admission_controller(layout: str, device=None):
+    """An ``AdmissionController`` over a registry of the five gateway
+    endpoints (analysis and link grouping on, as a user builds it)."""
+    from repro_torch.data.pipeline import AdmissionController
+    from repro_torch.registry import SchemaRegistry
+    from repro_torch.registry.presets import GATEWAY_SCHEMAS
+
+    registry = SchemaRegistry(layout=layout, device=device)
+    for name, schema in GATEWAY_SCHEMAS.items():
+        registry.register(name, schema)
+    return AdmissionController(registry=registry, endpoint=next(iter(GATEWAY_SCHEMAS)),
+                               batch_max_nodes=MAX_NODES)
+
+
+def _verdict_rows(verdicts) -> List[tuple]:
+    return [(v.outcome.name, v.valid, v.engine) for v in verdicts]
+
+
+def registry_phase(layout: str, docs, endpoints, oracle) -> Dict[str, Any]:
+    """Registry admission of the gateway mix in one executor layout."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_cuda
+    from repro_torch.kernels.hash_match import hash_match_cuda
+
+    ctrl = admission_controller(layout)  # the default device: cuda
+    reg = ctrl.registry
+    # first call per batch shape (allocator growth), with every kernel call
+    # held against its plain version (the dense kernel's in assertion_eval_at_main)
+    captured = capture_kernel_inputs(lambda: ctrl.admit_ex(docs, endpoints))
+    for args in captured["hash_match"]:
+        _check_equal(f"hash_match in {layout} admission", hash_match_cuda(*args),
+                     ref.hash_match_ref(*args))
+    for args in captured["assertion_eval_window"]:
+        _check_equal(f"assertion_eval_window in {layout} admission",
+                     assertion_eval_window_cuda(*args), ref.assertion_eval_window_ref(*args))
+    torch.cuda.synchronize()
+
+    before = ctrl.stats.snapshot()
+    zero_launch_counts()
+    times, results = [], []
+    for _ in range(TIMED_LAUNCHES):
+        t0 = time.perf_counter()
+        results.append(ctrl.admit_ex(docs, endpoints))
+        times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    after = ctrl.stats.snapshot()
+    # the AdmitCounts of one call, from the controller's counters over the
+    # timed calls (PipelineStats sums every AdmitCounts field it receives)
+    counts = {f: int(after[f] - before[f]) // TIMED_LAUNCHES for f in ADMIT_COUNT_FIELDS}
+    n_groups = len({reg.group_of(e).label for e in set(endpoints)})
+    per_call = {
+        "hash_match": n_groups * (reg.max_depth if layout == "dense" else 1),
+        "assertion_eval_window": n_groups if layout == "csr" else 0,
+        "assertion_eval": n_groups if layout == "dense" else 0,
+    }
+    if launches != {k: v * TIMED_LAUNCHES for k, v in per_call.items()}:
+        raise AssertionError(f"{layout} admission: launches {launches} in {TIMED_LAUNCHES} "
+                             f"calls, want {per_call} per call")
+    verdicts = _verdict_rows(results[0])
+    if any(_verdict_rows(r) != verdicts for r in results[1:]):
+        raise AssertionError(f"{layout} admission: repeated calls disagree")
+    cpu = _verdict_rows(admission_controller(layout, device="cpu").admit_ex(docs, endpoints))
+    if cpu != verdicts:
+        diff = sum(a != b for a, b in zip(cpu, verdicts))
+        raise AssertionError(f"{layout} admission: {diff} verdicts differ from the CPU registry")
+    batched = [i for i, v in enumerate(results[0]) if v.engine == "batched"]
+    if not batched:
+        raise AssertionError(f"{layout} admission: no request was decided on the batched path")
+    wrong = sum(results[0][i].valid != bool(oracle[i]) for i in batched)
+    if wrong:
+        raise AssertionError(f"{layout} admission: {wrong} batched verdicts differ from "
+                             "the sequential Validator")
+    admit_ms = statistics.median(times) * 1e3
+    host = host_phases(lambda: ctrl.admit_ex(docs, endpoints), f"registry {layout}", reps=3)
+    prof = profile(lambda: ctrl.admit_ex(docs, endpoints), f"registry {layout}")
+    by_group = collections.Counter(reg.group_of(e).label for e in endpoints)
+    print(f"[registry] layout={layout}: requests by group {dict(sorted(by_group.items()))}; "
+          f"median admit_ex {admit_ms:.3f} ms over {TIMED_LAUNCHES} calls of {len(docs)} "
+          f"requests, {len(docs) / (admit_ms / 1e3):.0f} requests/s; launches per call "
+          f"{ {k: v // TIMED_LAUNCHES for k, v in launches.items()} }; AdmitCounts "
+          f"{counts}; verdicts equal to the CPU registry and, for the {len(batched)} "
+          "batched ones, to the sequential Validator")
+    return {"admit_ms": admit_ms, "requests_per_s": len(docs) / (admit_ms / 1e3),
+            "launches": launches, "launches_per_call": per_call, "counts": counts,
+            "host_ms_by_phase": host, "profile": prof,
+            "verdicts": verdicts, "dense_calls": captured["assertion_eval"]}
 
 
 def run() -> int:
@@ -579,18 +807,34 @@ def run() -> int:
     print(f"[isolation] launch fault at row {poison} cornered by validate_isolated; "
           f"the other {BATCH - 1} rows bit-equal")
 
-    host = host_phases(main["bv"], table, ids)
-    prof = profile(main["bv"], table, ids)
+    host = host_phases(lambda: main["bv"].validate_ex(table, ids), "host")
+    prof = profile(lambda: main["bv"].validate_ex(table, ids), "profile")
     if prof["device_busy_ms"] > 0:
         print(f"[profile] device busy {prof['device_busy_ms']:.3f} ms is "
               f"{100 * prof['device_busy_ms'] / main['launch_ms']:.1f}% of the unprofiled "
               f"median launch ({main['launch_ms']:.3f} ms)")
+
+    endpoints = [names[i] for i in ids]
+    registry = {layout: registry_phase(layout, docs, endpoints, main["oracle"])
+                for layout in ("csr", "dense")}
+    if registry["csr"].pop("verdicts") != registry["dense"].pop("verdicts"):
+        raise AssertionError("registry admission: the csr and dense layouts disagree")
+    print("[registry] the csr and dense layouts give equal verdicts")
+    kernels.append(assertion_eval_at_main(registry["dense"].pop("dense_calls")))
+    registry["csr"].pop("dense_calls")
+    for row in kernels:
+        row["launches_by_path"] = {
+            "main": main["launches"][row["name"]],
+            **{f"registry_{k}": v["launches"][row["name"]] for k, v in registry.items()},
+        }
+    kernels[-1]["launches"] = registry["dense"]["launches"]["assertion_eval"]
+
     print(json.dumps({"main_path": {
         "card": smi, "batch": BATCH, "max_nodes": MAX_NODES,
         "docs_per_s": main["docs_per_s"], "launch_ms": main["launch_ms"],
         "encode_us_per_doc": encode_us, "decided_share": main["decided_share"],
         "valid_share_of_decided": main["valid_share_of_decided"], "profile": prof,
-        "host_ms_by_phase": host,
+        "host_ms_by_phase": host, "registry": registry,
     }}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,6 +8,7 @@ on its own so that the front end loads without torch).
 
 from .compiler import CompiledSchema, CompilerOptions, compile_schema
 from .executor import Validator
+from .interpreter import NaiveValidator
 from .doc_model import parse_document
 from .outcomes import (
     BreakerConfig,
@@ -30,6 +31,7 @@ __all__ = [
     "CompilerOptions",
     "compile_schema",
     "Validator",
+    "NaiveValidator",
     "parse_document",
     "Dialect",
     "BreakerConfig",

@@ -22,9 +22,16 @@ The pipeline is the reference's:
 4. **Reduce** -- AND over nodes per document, plus the depth-budget and
    unroll-frontier ``decided`` flags.
 
+``layout="dense"`` is the reference's full-matrix baseline: the depth loop
+runs all ``max_depth`` iterations with one ``hash_match`` per iteration
+over the unsorted property table (owner = the parent's location), and the
+``assertion_eval`` kernel computes the (nodes x A) pass matrix of every
+node against every row, reduced by row ownership and OR-group.  Both
+layouts give bit-identical ``(valid, decided, frontier)``.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
-where the kernels' plain PyTorch versions run instead.  The dense layout
-and ``explain_batch`` are not ported yet.
+where the kernels' plain PyTorch versions run instead.  ``explain_batch``
+is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -50,13 +57,13 @@ from .tape import (
     LocationTape,
 )
 
-__all__ = ["BatchValidator"]
+__all__ = ["BatchValidator", "resolve_device"]
 
 _BIG = 2**30
 _CIRC_FLAG = 1 << 20  # packed circuit-membership bit in asrt_gcode
 
 
-def _resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless told otherwise.
 
     A missing GPU raises; it never falls back to the CPU silently.
@@ -107,9 +114,17 @@ def _circuit_static_wiring(tape: LocationTape, device: torch.device):
     Every location a circuit touches gets a compact *anchor rank*, so the
     executor resolves per document the single node at each such location
     (unique-path precondition) and evaluates leaves and presence as
-    (B, U)/(B, C) gathers.  Index columns are shipped to ``device`` once.
+    (B, U)/(B, C) gathers.  Each leaf unit reads one column of a pass
+    matrix at its anchor node: a window slot in the CSR layout, an
+    assertion row (AND units) or OR-group verdict (group units) in the
+    dense layout.  Index columns are shipped to ``device`` once.
     """
     and_units, group_units = _circuit_leaf_units(tape)
+    # OR-groups outside every circuit, by group id - 1 (all rows of a group
+    # share its circuit: a group comes from one enum lowering)
+    grp = np.asarray(tape.asrt_group)
+    plain_groups = np.ones(int(grp.max(initial=0)), bool)
+    plain_groups[grp[(grp > 0) & (np.asarray(tape.asrt_circ) >= 0)] - 1] = False
     circ_owner = np.asarray(tape.circ_owner, np.int32)
     unit_owners = [u[1] for u in and_units] + [u[1] for u in group_units]
     owner_locs = np.unique(
@@ -129,9 +144,13 @@ def _circuit_static_wiring(tape: LocationTape, device: torch.device):
         "circ_ranks": dev([rank_of[int(l)] for l in circ_owner]),
         "and_ranks": dev([rank_of[u[1]] for u in and_units]),
         "group_ranks": dev([rank_of[u[1]] for u in group_units]),
-        # window slot each leaf unit reads at its anchor node
-        "and_cols": dev([u[3] for u in and_units]),
-        "group_cols": dev([u[3] for u in group_units]),
+        # CSR layout: the window slot each leaf unit reads at its anchor
+        "and_slots": dev([u[3] for u in and_units]),
+        "group_slots": dev([u[3] for u in group_units]),
+        # dense layout: the assertion row / OR-group verdict column
+        "and_rows": dev([u[2] for u in and_units]),
+        "group_idx": dev([u[2] - 1 for u in group_units]),
+        "plain_groups": torch.as_tensor(plain_groups, device=device),
     }
 
 
@@ -151,6 +170,7 @@ def _tape_consts(tape: LocationTape, device: torch.device) -> Dict[str, torch.Te
     if int(np.asarray(tape.asrt_group).max(initial=0)) >= _CIRC_FLAG:
         raise ValueError("OR-group id space exceeds the gcode circuit-flag bit")
     psort_owner = _i32(tape.psort_owner)
+    group = _i32(tape.asrt_group)
     host = {
         "psort_hash": _u32_view(tape.psort_hash),
         "psort_owner": psort_owner,
@@ -164,6 +184,16 @@ def _tape_consts(tape: LocationTape, device: torch.device) -> Dict[str, torch.Te
         "psort_required_slot": _i32(tape.psort_required_slot),
         "psort_orig_row": _i32(tape.psort_orig_row),
         "psort_run_len": _i32(tape.psort_run_len),
+        # the dense layout's unsorted property table; the empty-table
+        # placeholder row (owner -1, zero lanes) gets the padding owner -9
+        # so no query can hit it.  The reference's jnp match does hit it
+        # for owner -1 queries with zero lanes, but those are never object
+        # members under a tracked parent, and the row's child is
+        # LOC_UNTRACKED with slot -1, so verdicts are unchanged
+        "prop_hash": _u32_view(tape.prop_hash),
+        "prop_match_owner": _i32(np.where(tape.prop_owner >= 0, tape.prop_owner, -9)),
+        "prop_child_loc": _i32(tape.prop_child_loc),
+        "prop_required_slot": _i32(tape.prop_required_slot),
         "prefix_loc": _i32(tape.prefix_loc),
         # packed per-location structural row: one gather per depth
         # iteration instead of six (addl, closed, item, item_start,
@@ -184,6 +214,12 @@ def _tape_consts(tape: LocationTape, device: torch.device) -> Dict[str, torch.Te
         "loc_required_mask": _i32(tape.loc_required_mask.astype(np.int32)),
         "loc_asrt_start": _i32(tape.loc_asrt_start),
         "loc_asrt_len": _i32(tape.loc_asrt_len),
+        "asrt_owner": _i32(tape.asrt_owner),
+        "asrt_group": group,
+        "asrt_circ": _i32(tape.asrt_circ),
+        # dense layout: the rows of some OR-group and their group id - 1
+        "group_rows": np.nonzero(group > 0)[0],
+        "group_idx": group[group > 0].astype(np.int64) - 1,
         "asrt_op": _i32(tape.asrt_op),
         # the reference compares in float32 (DESIGN.md §7)
         "asrt_f0": np.ascontiguousarray(tape.asrt_f0, dtype=np.float32),
@@ -240,9 +276,9 @@ class BatchValidator:
         metrics=None,
         device=None,
     ):
-        if layout != "csr":
-            raise NotImplementedError(f"layout {layout!r} is not ported; use 'csr'")
-        self.device = _resolve_device(device)
+        if layout not in ("csr", "dense"):
+            raise ValueError(f"unknown layout {layout!r}")
+        self.device = resolve_device(device)
         self.tape = tape
         self.max_depth = max_depth
         self.layout = layout
@@ -274,6 +310,9 @@ class BatchValidator:
         # static: tapes without frontier locations skip the detection scan
         self.has_frontier = tape.n_frontier > 0
         self.n_circuits = tape.n_circuits
+        # dense layout: OR-group ids 1..n_groups-1, known from the tape on
+        # the host so the launch never syncs to size its reduction
+        self.n_groups = int(np.asarray(tape.asrt_group).max(initial=0)) + 1
         self._circuits = _circuit_static_wiring(tape, self.device)
         self._consts = _tape_consts(tape, self.device)
 
@@ -282,10 +321,12 @@ class BatchValidator:
             cols,
             schema_ids,
             consts=self._consts,
+            layout=self.layout,
             max_depth=self.max_depth,
             max_loc_depth=self.tape.max_loc_depth,
             n_window=self.n_window,
             k_cand=self.k_cand,
+            n_groups=self.n_groups,
             has_frontier=self.has_frontier,
             circuits=self._circuits,
             n_circuits=self.n_circuits,
@@ -338,6 +379,14 @@ class BatchValidator:
         ok = np.asarray(table.ok)
         decided = in_depth & ~frontier & ok
         return valid, decided, frontier & ok
+
+    def explain_batch(self, table, schema_ids=None, *, docs=None):
+        """Batched first-failure attribution: not ported yet.
+
+        Raises rather than returning nothing, so a caller that expects
+        ``FailureSite``s cannot mistake the gap for valid documents.
+        """
+        raise NotImplementedError("explain_batch is not ported yet")
 
     def seen_shapes(self) -> set:
         """Snapshot of the (B, max_nodes) launch shapes already run."""
@@ -422,7 +471,9 @@ class BatchValidator:
         return valid, decided, frontier, errors
 
 
-def _propagate_locations(cols, member, consts, *, loop_depth: int, k_cand: int):
+def _propagate_locations(
+    cols, member, consts, *, layout: str, loop_depth: int, k_cand: int
+):
     """Assign every node a schema location; returns (loc, acquired).
 
     ``member`` is the (B*N,) int32 member id of each node's document.
@@ -454,23 +505,24 @@ def _propagate_locations(cols, member, consts, *, loop_depth: int, k_cand: int):
     is_member_node = is_real & (parent_type == _T_OBJ)
     is_item_node = is_real & (parent_type == _T_ARR)
 
-    # -- hoisted single hash pass: each object member's candidate-run
-    # start among its own member's hash-sorted property rows
-    M = consts["psort_owner"].shape[0]
-    q_owner = torch.where(is_member_node, member, -1)
-    first = kops.hash_match(
-        key_hash, q_owner, consts["psort_hash"], consts["psort_match_owner"]
-    )
-    has_cand = first >= 0
-    safe_first = torch.where(has_cand, first, 0).long()
-    run_len = torch.where(has_cand, consts["psort_run_len"][safe_first], 0)
-    k_arange = torch.arange(k_cand, dtype=torch.int64, device=dev)[None, :]  # (1, K)
-    cand_rows = torch.clamp(safe_first[:, None] + k_arange, 0, M - 1)  # (BN, K)
-    cand_valid = k_arange < run_len[:, None]
-    cand_owner = torch.where(cand_valid, consts["psort_owner"][cand_rows], -1)
-    cand_child = consts["psort_child_loc"][cand_rows]
-    cand_slot = consts["psort_required_slot"][cand_rows]
-    cand_orig = consts["psort_orig_row"][cand_rows]
+    if layout == "csr":
+        # -- hoisted single hash pass: each object member's candidate-run
+        # start among its own member's hash-sorted property rows
+        M = consts["psort_owner"].shape[0]
+        q_owner = torch.where(is_member_node, member, -1)
+        first = kops.hash_match(
+            key_hash, q_owner, consts["psort_hash"], consts["psort_match_owner"]
+        )
+        has_cand = first >= 0
+        safe_first = torch.where(has_cand, first, 0).long()
+        run_len = torch.where(has_cand, consts["psort_run_len"][safe_first], 0)
+        k_arange = torch.arange(k_cand, dtype=torch.int64, device=dev)[None, :]  # (1, K)
+        cand_rows = torch.clamp(safe_first[:, None] + k_arange, 0, M - 1)  # (BN, K)
+        cand_valid = k_arange < run_len[:, None]
+        cand_owner = torch.where(cand_valid, consts["psort_owner"][cand_rows], -1)
+        cand_child = consts["psort_child_loc"][cand_rows]
+        cand_slot = consts["psort_required_slot"][cand_rows]
+        cand_orig = consts["psort_orig_row"][cand_rows]
 
     # required-bit contributions, recorded at each node's own depth and
     # scattered once after the loop
@@ -482,15 +534,27 @@ def _propagate_locations(cols, member, consts, *, loop_depth: int, k_cand: int):
         at_depth = depth == d
         parent_loc = loc[parent_flat]
 
-        # -- object members: owner equality over the K candidates; ties
-        # break to the minimal original row
         is_member = at_depth & is_member_node
-        m = cand_valid & (cand_owner == parent_loc[:, None])
-        orig_masked = torch.where(m, cand_orig, _BIG)
-        best_k = torch.argmin(orig_masked, dim=1, keepdim=True)  # first minimum
-        matched = torch.gather(orig_masked, 1, best_k)[:, 0] < _BIG
-        child_loc_m = torch.gather(cand_child, 1, best_k)[:, 0]
-        slot_m = torch.gather(cand_slot, 1, best_k)[:, 0]
+        if layout == "csr":
+            # -- object members: owner equality over the K candidates;
+            # ties break to the minimal original row
+            m = cand_valid & (cand_owner == parent_loc[:, None])
+            orig_masked = torch.where(m, cand_orig, _BIG)
+            best_k = torch.argmin(orig_masked, dim=1, keepdim=True)  # first minimum
+            matched = torch.gather(orig_masked, 1, best_k)[:, 0] < _BIG
+            child_loc_m = torch.gather(cand_child, 1, best_k)[:, 0]
+            slot_m = torch.gather(cand_slot, 1, best_k)[:, 0]
+        else:
+            # -- object members: a full hash_match over the unsorted
+            # property table, owner = the parent's location
+            q_owner = torch.where(is_member & (parent_loc >= 0), parent_loc, -1)
+            row = kops.hash_match(
+                key_hash, q_owner, consts["prop_hash"], consts["prop_match_owner"]
+            )
+            matched = row >= 0
+            safe_row = torch.where(matched, row, 0).long()
+            child_loc_m = consts["prop_child_loc"][safe_row]
+            slot_m = consts["prop_required_slot"][safe_row]
         child_loc = torch.where(matched, child_loc_m, LOC_UNTRACKED)
         # one packed row gather for the parent's structural facts
         p_loc_safe = torch.where(parent_loc >= 0, parent_loc, 0).long()
@@ -600,6 +664,45 @@ def _assertions_csr(loc, node_cols, consts, *, n_window: int, n_circuits: int):
     return asrt_ok, passes, seg_any
 
 
+def _assertions_dense(loc, node_cols, consts, *, n_groups: int, circuits, n_circuits: int):
+    """Dense assertion evaluation + ownership and OR-group reduction.
+
+    Returns ``(asrt_ok, passes, gval)``: the per-node verdict over plain
+    rows, the (BN, A) pass matrix and the (BN, G-1) per-node OR-group
+    verdicts (the circuit leaves' sources).  The reference reduces groups
+    through a rank-3 (BN, A, G-1) one-hot; here two ``index_add_`` counts
+    over the group rows give the same verdicts in O(BN * A) memory.
+    """
+    asrt_cols = {k: consts[f"asrt_{k}"] for k in ("op", "f0", "i0", "i1", "u0", "u1", "hash")}
+    passes = kops.assertion_eval(node_cols, asrt_cols) != 0  # (BN, A)
+    applies = loc[:, None] == consts["asrt_owner"][None, :]  # (BN, A)
+
+    groups = consts["asrt_group"]
+    is_and_row = (groups == 0) & (consts["asrt_circ"] < 0)
+    and_ok = torch.where(applies & is_and_row[None, :], passes, True).all(dim=1)
+
+    # enum OR-groups: a group passes iff it does not apply or a row matches
+    BN = loc.shape[0]
+    if n_groups > 1:
+        g_rows = consts["group_rows"]  # (R,) rows of some group
+        g_app = applies[:, g_rows]
+        g_hit = g_app & passes[:, g_rows]
+
+        def count(hits):
+            out = torch.zeros((BN, n_groups - 1), dtype=torch.int32, device=loc.device)
+            return out.index_add_(1, consts["group_idx"], hits.to(torch.int32))
+
+        gval = (count(g_app) == 0) | (count(g_hit) > 0)  # (BN, G-1)
+        if n_circuits:
+            or_ok = (gval | ~circuits["plain_groups"][None, :]).all(dim=1)
+        else:
+            or_ok = gval.all(dim=1)
+    else:
+        gval = torch.ones((BN, 1), dtype=torch.bool, device=loc.device)
+        or_ok = torch.ones(BN, dtype=torch.bool, device=loc.device)
+    return and_ok & or_ok, passes, gval
+
+
 def _circuit_anchors(loc, circuits, B: int, N: int):
     """(B, O) in-document node index at each circuit-relevant location.
 
@@ -624,17 +727,21 @@ def _anchor_gather(node_at, mat, ranks, cols, B: int, N: int):
     return torch.where(rows >= 0, vals, True)
 
 
-def _leaf_values(node_at, circuits, mats, B: int, N: int):
-    """{circuit id: [(B,) bool, ...]} leaf values via anchored gathers of
-    the window pass matrix (AND units) and the segmented group OR."""
-    and_mat, group_mat = mats
+def _leaf_values(node_at, circuits, mats, cols, B: int, N: int):
+    """{circuit id: [(B,) bool, ...]} leaf values via anchored gathers.
+
+    ``mats`` are the (BN, ·) AND-leaf and group-leaf value matrices and
+    ``cols`` the static column each unit reads (per layout: window slots
+    of the window pass matrix and segmented group OR, or assertion rows of
+    the dense pass matrix and OR-group verdict columns).
+    """
     out: Dict[int, list] = {}
-    for units, mat, ranks, cols in (
-        (circuits["and_units"], and_mat, circuits["and_ranks"], circuits["and_cols"]),
-        (circuits["group_units"], group_mat, circuits["group_ranks"], circuits["group_cols"]),
+    for units, mat, ranks, col in (
+        (circuits["and_units"], mats[0], circuits["and_ranks"], cols[0]),
+        (circuits["group_units"], mats[1], circuits["group_ranks"], cols[1]),
     ):
         if units:
-            v = _anchor_gather(node_at, mat, ranks, cols, B, N)
+            v = _anchor_gather(node_at, mat, ranks, col, B, N)
             for u, unit in enumerate(units):
                 out.setdefault(unit[0], []).append(v[:, u])
     return out
@@ -695,10 +802,12 @@ def _validate_batch(
     schema_ids,
     *,
     consts,
+    layout: str,
     max_depth: int,
     max_loc_depth: int,
     n_window: int,
     k_cand: int,
+    n_groups: int,
     has_frontier: bool,
     circuits,
     n_circuits: int,
@@ -706,16 +815,17 @@ def _validate_batch(
     """One launch: (valid, in_depth, frontier) boolean (B,) tensors."""
     # the tape caps trackable depth at compile time: below
     # max_loc_depth + 1 every location is untracked or under an invalid
-    # ancestor, so the loop stops there
+    # ancestor, so the CSR loop stops there.  The dense layout keeps the
+    # reference's full-depth loop (verdicts are identical either way)
     tape_horizon = max_loc_depth + 1
-    loop_depth = min(max_depth, tape_horizon)
+    loop_depth = min(max_depth, tape_horizon) if layout == "csr" else max_depth
     B, N = cols["node_type"].shape
     BN = B * N
     dev = cols["node_type"].device
     member = schema_ids.to(torch.int32).repeat_interleave(N)  # (BN,)
     with _phase("executor.locations"):
         loc, acquired = _propagate_locations(
-            cols, member, consts, loop_depth=loop_depth, k_cand=k_cand
+            cols, member, consts, layout=layout, loop_depth=loop_depth, k_cand=k_cand
         )
     node_type = cols["node_type"].reshape(BN)
     is_pad = node_type == 0
@@ -739,9 +849,17 @@ def _validate_batch(
         "str_prefix": cols["str_prefix"].reshape(BN, 2),
     }
     with _phase("executor.assertions"):
-        asrt_ok, w_passes, w_seg_any = _assertions_csr(
-            loc, node_cols, consts, n_window=n_window, n_circuits=n_circuits
-        )
+        if layout == "csr":
+            asrt_ok, and_mat, group_mat = _assertions_csr(
+                loc, node_cols, consts, n_window=n_window, n_circuits=n_circuits
+            )
+            leaf_cols = (circuits["and_slots"], circuits["group_slots"])
+        else:
+            asrt_ok, and_mat, group_mat = _assertions_dense(
+                loc, node_cols, consts, n_groups=n_groups, circuits=circuits,
+                n_circuits=n_circuits,
+            )
+            leaf_cols = (circuits["and_rows"], circuits["group_idx"])
 
     # ---- 4. reduce -----------------------------------------------------------
     node_valid = ((loc != LOC_INVALID) & asrt_ok & required_ok) | is_pad
@@ -752,7 +870,7 @@ def _validate_batch(
     if n_circuits:
         with _phase("executor.circuits"):
             node_at = _circuit_anchors(loc, circuits, B, N)
-            leaf_vals = _leaf_values(node_at, circuits, (w_passes, w_seg_any), B, N)
+            leaf_vals = _leaf_values(node_at, circuits, (and_mat, group_mat), leaf_cols, B, N)
             present = node_at[:, circuits["circ_ranks"]] >= 0  # (B, C)
             valid = valid & _reduce_circuits(
                 leaf_vals, present, circuits, n_circuits=n_circuits

@@ -1,0 +1,112 @@
+// eval_row.cuh: the assertion mini-ISA on one (node, assertion row) pair.
+//
+// The per-element body of `_eval_rows` (src/repro/kernels/assertion_eval.py),
+// shared by the dense kernel (assertion_eval.cu) and the windowed kernel
+// (assertion_eval_window.cu), so the 19 ops and their rounding and shift
+// rules have one source.  The TPU version computes every op's candidate and
+// selects by op code; here a switch runs only the selected op.
+//
+// Bit-exactness with the reference (jnp, float32):
+//  - NUM_MULTIPLE uses float32 constants (1e-6f), floorf(q + 0.5f) and a
+//    correctly rounded division; the build passes -fmad=false and no fast
+//    math, so no product is contracted into an FMA.
+//  - STR_PREFIX builds its masks in unsigned int and treats a shift of 32
+//    or more as 0 (XLA's semantics; plain C++ leaves it undefined).
+//  - OBJ_HAS_SLOT clamps its shift to 0..31; TYPE_MASK gives 0 for a node
+//    type outside 0..31.
+//  - An op code outside 0..18 (the padding op -1) gives false.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace blaze {
+
+// node type codes (core/nodetypes.py) and op codes (core/tape.py AOP)
+constexpr int T_NULL = 1, T_BOOL = 2, T_NUM = 3, T_STR = 4, T_ARR = 5, T_OBJ = 6;
+enum Op {
+  TYPE_MASK = 0, NUM_GE = 1, NUM_GT = 2, NUM_LE = 3, NUM_LT = 4, NUM_MULTIPLE = 5,
+  STR_MINLEN = 6, STR_MAXLEN = 7, ARR_MINLEN = 8, ARR_MAXLEN = 9, OBJ_MINPROPS = 10,
+  OBJ_MAXPROPS = 11, STR_PREFIX = 12, STR_EQ = 13, CONST_NULL = 14, CONST_BOOL = 15,
+  CONST_NUM = 16, STR_EQ_PRE = 17, OBJ_HAS_SLOT = 18,
+};
+
+// logical shifts with XLA's out-of-range rule: a shift by >= 32 gives 0
+__device__ __forceinline__ unsigned shr(unsigned x, unsigned s) { return s >= 32u ? 0u : x >> s; }
+__device__ __forceinline__ unsigned shl(unsigned x, unsigned s) { return s >= 32u ? 0u : x << s; }
+
+// mask of the first `len` bytes of a big-endian word, 0 when len == 0
+// (unsigned arithmetic: wraps as the reference's int32 does, never overflows)
+__device__ __forceinline__ unsigned prefix_mask(int len) {
+  const unsigned s = (4u - static_cast<unsigned>(len)) * 8u;
+  return len == 0 ? 0u : shl(shr(0xFFFFFFFFu, s), s);
+}
+
+__device__ __forceinline__ bool hash_equal(int4 na, int4 nb, int4 wa, int4 wb) {
+  return na.x == wa.x && na.y == wa.y && na.z == wa.z && na.w == wa.w && nb.x == wb.x &&
+         nb.y == wb.y && nb.z == wb.z && nb.w == wb.w;
+}
+
+// One (node, row) verdict.  The operands most ops read come by value; the
+// others are read through the accessors, only by the ops that need them,
+// so a caller reading device memory loads them lazily:
+//   node.is_int(), node.acquired() -> int; node.prefix() -> int2;
+//   node.hash(a, b) and row.hash(a, b) fill two int4 with the 8 lanes;
+//   row.i1() -> int; row.u0(), row.u1() -> unsigned.
+template <class Node, class Row>
+__device__ __forceinline__ bool eval_row(int op, float f0, int i0, int ntype, float num,
+                                         int size, const Node& node, const Row& row) {
+  const bool is_num = ntype == T_NUM, is_str = ntype == T_STR;
+  const bool is_arr = ntype == T_ARR, is_obj = ntype == T_OBJ;
+  switch (op) {
+    case TYPE_MASK: {
+      const int type_bit = static_cast<int>(shl(1u, static_cast<unsigned>(ntype)));
+      return ((type_bit & i0) != 0) && (row.i1() == 0 || !is_num || node.is_int() != 0);
+    }
+    case NUM_GE: return !is_num || num >= f0;
+    case NUM_GT: return !is_num || num > f0;
+    case NUM_LE: return !is_num || num <= f0;
+    case NUM_LT: return !is_num || num < f0;
+    case NUM_MULTIPLE: {
+      const float q = __fdiv_rn(num, f0 == 0.0f ? 1.0f : f0);
+      const float q_near = floorf(__fadd_rn(q, 0.5f));
+      const float q_tol = fminf(__fmul_rn(1e-6f, fmaxf(fabsf(q), 1.0f)), 0.25f);
+      return !is_num || (f0 != 0.0f && fabsf(__fsub_rn(q, q_near)) <= q_tol);
+    }
+    case STR_MINLEN: return !is_str || size >= i0;
+    case STR_MAXLEN: return !is_str || size <= i0;
+    case ARR_MINLEN: return !is_arr || size >= i0;
+    case ARR_MAXLEN: return !is_arr || size <= i0;
+    case OBJ_MINPROPS: return !is_obj || size >= i0;
+    case OBJ_MAXPROPS: return !is_obj || size <= i0;
+    case STR_PREFIX: {
+      if (!is_str) return true;
+      const int len0 = min(i0, 4);
+      const int len1 = max(static_cast<int>(static_cast<unsigned>(i0) - 4u), 0);
+      const unsigned m0 = prefix_mask(len0), m1 = prefix_mask(len1);
+      const int2 p = node.prefix();
+      const bool eq = ((static_cast<unsigned>(p.x) & m0) == (row.u0() & m0)) &&
+                      ((static_cast<unsigned>(p.y) & m1) == (row.u1() & m1));
+      return eq && size >= i0;
+    }
+    case STR_EQ:
+    case STR_EQ_PRE: {
+      int4 na, nb, wa, wb;
+      node.hash(na, nb);
+      row.hash(wa, wb);
+      const bool heq = hash_equal(na, nb, wa, wb);
+      return op == STR_EQ ? (is_str && heq) : (!is_str || heq);
+    }
+    case CONST_NULL: return ntype == T_NULL;
+    case CONST_BOOL: return ntype == T_BOOL && num == f0;
+    case CONST_NUM: return is_num && num == f0;
+    case OBJ_HAS_SLOT: {
+      const int s = min(max(i0, 0), 31);
+      return !is_obj || ((node.acquired() >> s) & 1) != 0;
+    }
+    default: return false;
+  }
+}
+
+}  // namespace blaze

@@ -1,18 +1,18 @@
-"""CUDA kernel: windowed assertion-tape evaluation (the CSR fast path).
+"""CUDA kernel: dense assertion-tape evaluation (the dense layout).
 
-Computes the (N, W) int8 pass matrix of every node against the <= Â rows
-of its own location's owner-sorted CSR window, with the branch-free 19-op
-mini-ISA and the paper's precondition semantics (wrong type => pass for AND
-rows).  Replaces the Pallas TPU kernel ``assertion_eval_window_pallas``
-(``repro/kernels/assertion_eval.py``).  The dense kernel of that module
-(``assertion_eval_pallas``, ``layout="dense"`` only) is not ported yet.
+Computes the (N, A) int8 pass matrix of every node against every assertion
+row of the tape, with the 19-op mini-ISA and the paper's precondition
+semantics (wrong type => pass for AND rows).  Replaces the Pallas TPU kernel
+``assertion_eval_pallas`` (``repro/kernels/assertion_eval.py``).
 
-What bounds it on the H100, and the design: the work is memory-bound
-(56 bytes of window operands read and 1 byte written per slot, plus 60
-bytes per node).  One thread owns one (node, slot) pair and reads the
-(N, W, 8) window hashes directly; the TPU's lane-major relayout, which kept
-every VMEM slice rank-2, is not needed.  Masked slots carry op -1 and give
-0, so no padding is added.  Source: ``csrc/assertion_eval_window.cu``.
+What bounds it on the H100, and the design: the work is memory-bound (one
+output byte per element, plus 60 bytes per node and 56 per row read once).
+A block stages a tile of 64 nodes and 128 rows in shared memory and its
+threads walk the tile with rows fastest, so the int8 stores coalesce.  The
+kernel masks the ragged edges of N and A itself, so unlike the JAX wrapper
+nothing is padded with op -1 rows.  Source: ``csrc/assertion_eval.cu``,
+with the per-element evaluator shared with the windowed kernel in
+``csrc/eval_row.cuh``.
 """
 
 from __future__ import annotations
@@ -21,24 +21,16 @@ import ctypes
 
 import torch
 
+from .assertion_eval_window import _NODE_COLS
 from .build import load
 from .hash_match import _check
 
-__all__ = ["assertion_eval_window_cuda"]
+__all__ = ["assertion_eval_cuda"]
 
 # kernel launches since import; chip_smoke.py zeroes it before the main path
 launches = 0
 
-_NODE_COLS = (
-    ("type", torch.int32, ()),
-    ("is_int", torch.int32, ()),
-    ("num", torch.float32, ()),
-    ("size", torch.int32, ()),
-    ("acquired", torch.int32, ()),
-    ("str_hash", torch.int32, (8,)),
-    ("str_prefix", torch.int32, (2,)),
-)
-_WINDOW_COLS = (
+_ROW_COLS = (
     ("op", torch.int32, ()),
     ("f0", torch.float32, ()),
     ("i0", torch.int32, ()),
@@ -49,32 +41,34 @@ _WINDOW_COLS = (
 )
 
 
-def assertion_eval_window_cuda(node_cols: dict, w_cols: dict) -> torch.Tensor:
-    """(N, W) int8 pass matrix, on PyTorch's current stream.
+def assertion_eval_cuda(node_cols: dict, asrt_cols: dict) -> torch.Tensor:
+    """(N, A) int8 pass matrix, on PyTorch's current stream.
 
-    Column dtypes and shapes as in ``ref.assertion_eval_window_ref``.
+    Column dtypes and shapes as in ``ref.assertion_eval_ref``.
     """
     global launches
-    n, w = w_cols["op"].shape
+    n, a = node_cols["type"].shape[0], asrt_cols["op"].shape[0]
     args = []
     for key, dtype, tail in _NODE_COLS:
         _check(key, node_cols[key], dtype, (n,) + tail)
         args.append(node_cols[key])
-    for key, dtype, tail in _WINDOW_COLS:
-        _check(key, w_cols[key], dtype, (n, w) + tail)
-        args.append(w_cols[key])
+    for key, dtype, tail in _ROW_COLS:
+        _check(key, asrt_cols[key], dtype, (a,) + tail)
+        args.append(asrt_cols[key])
     device = args[0].device
     if any(t.device != device for t in args):
-        raise ValueError("assertion_eval_window: all tensors must be on one device")
-    out = torch.empty((n, w), dtype=torch.int8, device=device)
-    lib = load("assertion_eval_window")
-    fn = lib.assertion_eval_window
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        raise ValueError("assertion_eval: all tensors must be on one device")
+    if n >= 2**31 or a >= 2**31:
+        raise ValueError(f"assertion_eval: N={n} and A={a} must fit in int32")
+    out = torch.empty((n, a), dtype=torch.int8, device=device)
+    lib = load("assertion_eval")
+    fn = lib.assertion_eval
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(t.data_ptr() for t in args), out.data_ptr(), n, w, stream)
+        rc = fn(*(t.data_ptr() for t in args), out.data_ptr(), n, a, stream)
     if rc != 0:
-        raise RuntimeError(f"assertion_eval_window launch failed: cudaError {rc}")
+        raise RuntimeError(f"assertion_eval launch failed: cudaError {rc}")
     launches += 1
     return out

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes one plain C function taking device pointers
 and a stream.  It is compiled for ``sm_90a`` into ``_build/lib<name>-<key>.so``
 inside the package (listed in ``.gitignore``), where ``<key>`` hashes the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused.  Nothing here runs at import: a machine without ``nvcc`` imports the
-package and uses the plain versions on CPU tensors.
+source, every ``csrc`` header it includes (``#include "x.cuh"``, followed
+transitively) and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused.  Nothing here runs at import: a machine without
+``nvcc`` imports the package and uses the plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -52,10 +54,26 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes from ``csrc``, in
+    first-seen order."""
+    seen = [CSRC / f"{name}.cu"]
+    for path in seen:  # grows while it is walked: a breadth-first closure
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.parent == CSRC and dep not in seen:
+                seen.append(dep)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str]) -> List[BuildResult]:

@@ -7,7 +7,8 @@ fallback from one to the other.
 The padding contract of the JAX package's wrappers holds without padding:
 the CUDA kernels mask their ragged edges themselves, a query owner of -1
 never matches (the reference's padded queries), table rows carry owners
->= 0 or the padding owner -9, and a window slot with op -1 evaluates to 0.
+>= 0 or the padding owner -9, and an assertion row or window slot with op
+-1 evaluates to 0.
 """
 
 from __future__ import annotations
@@ -15,10 +16,11 @@ from __future__ import annotations
 import torch
 
 from . import ref as _ref
-from .assertion_eval import assertion_eval_window_cuda
+from .assertion_eval import assertion_eval_cuda
+from .assertion_eval_window import assertion_eval_window_cuda
 from .hash_match import hash_match_cuda
 
-__all__ = ["hash_match", "assertion_eval_window"]
+__all__ = ["hash_match", "assertion_eval", "assertion_eval_window"]
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -51,6 +53,18 @@ def hash_match(
     if _device_type(q_lanes, q_owner, t_lanes, t_owner) == "cpu":
         return _ref.hash_match_ref(q_lanes, q_owner, t_lanes, t_owner)
     return hash_match_cuda(q_lanes, q_owner, t_lanes, t_owner)
+
+
+def assertion_eval(node_cols: dict, asrt_cols: dict) -> torch.Tensor:
+    """(N, A) int8 pass matrix of every node against every assertion row.
+
+    ``asrt_cols`` holds op/f0/i0/i1/u0/u1 of shape (A,) and hash of shape
+    (A, 8); rows with op -1 evaluate to 0.
+    """
+    node_cols = _with_acquired(node_cols)
+    if _device_type(*node_cols.values(), *asrt_cols.values()) == "cpu":
+        return _ref.assertion_eval_ref(node_cols, asrt_cols)
+    return assertion_eval_cuda(node_cols, asrt_cols)
 
 
 def assertion_eval_window(node_cols: dict, w_cols: dict) -> torch.Tensor:

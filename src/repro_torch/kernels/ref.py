@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two CUDA kernels (the CPU path and the oracle).
+"""Plain PyTorch versions of the CUDA kernels (the CPU path and the oracle).
 
 Bit-identical to the jnp references of the JAX package (``repro/kernels/
 ref.py``).  Every uint32 column (key/string hash lanes, string prefixes,
@@ -15,7 +15,7 @@ import torch
 from ..core.nodetypes import T_ARR, T_BOOL, T_NULL, T_NUM, T_OBJ, T_STR
 from ..core.tape import AOP
 
-__all__ = ["hash_match_ref", "assertion_eval_window_ref"]
+__all__ = ["hash_match_ref", "assertion_eval_ref", "assertion_eval_window_ref"]
 
 _BIG = 2**30
 _U32 = 0xFFFFFFFF
@@ -146,6 +146,38 @@ def _eval_rows_ref(ntype, isint, num, size, acq, pfx0, pfx1, op, f0, i0, i1, u0,
     return result
 
 
+def _node_operands(node_cols: dict) -> tuple:
+    """The node columns as (N, 1) operands of ``_eval_rows_ref``."""
+    str_pfx = node_cols["str_prefix"]
+    return (
+        node_cols["type"][:, None],
+        node_cols["is_int"][:, None] != 0,
+        node_cols["num"][:, None],
+        node_cols["size"][:, None],
+        node_cols["acquired"][:, None],
+        str_pfx[:, 0:1],
+        str_pfx[:, 1:2],
+    )
+
+
+def assertion_eval_ref(node_cols: dict, asrt_cols: dict) -> torch.Tensor:
+    """(N, A) int8 pass matrix of every node against every assertion row.
+
+    ``node_cols`` as in :func:`assertion_eval_window_ref`; ``asrt_cols``:
+    op/i0/i1/u0/u1 int32 (A,), f0 float32 (A,), hash int32 (A, 8).  The
+    same evaluator on (N, 1) x (1, A) broadcasts; rows with op -1 give 0.
+    """
+    str_hash = node_cols["str_hash"]
+    a_hash = asrt_cols["hash"]
+    shape = (str_hash.shape[0], a_hash.shape[0])
+    hash_eq = torch.ones(shape, dtype=torch.bool, device=a_hash.device)
+    for lane in range(8):  # eight rank-2 compares, no (N, A, 8) intermediate
+        hash_eq &= str_hash[:, lane, None] == a_hash[None, :, lane]
+    rows = [asrt_cols[key][None, :] for key in ("op", "f0", "i0", "i1", "u0", "u1")]
+    result = _eval_rows_ref(*_node_operands(node_cols), *rows, hash_eq)
+    return result.to(torch.int8)
+
+
 def assertion_eval_window_ref(node_cols: dict, w_cols: dict) -> torch.Tensor:
     """(N, W) int8 pass matrix of each node against its gathered CSR window.
 
@@ -155,19 +187,12 @@ def assertion_eval_window_ref(node_cols: dict, w_cols: dict) -> torch.Tensor:
     with op -1 evaluate to 0.
     """
     str_hash = node_cols["str_hash"]
-    str_pfx = node_cols["str_prefix"]
     w_hash = w_cols["hash"]
     hash_eq = torch.ones(w_cols["op"].shape, dtype=torch.bool, device=w_hash.device)
     for lane in range(8):
         hash_eq &= str_hash[:, lane, None] == w_hash[:, :, lane]
     result = _eval_rows_ref(
-        node_cols["type"][:, None],
-        node_cols["is_int"][:, None] != 0,
-        node_cols["num"][:, None],
-        node_cols["size"][:, None],
-        node_cols["acquired"][:, None],
-        str_pfx[:, 0:1],
-        str_pfx[:, 1:2],
+        *_node_operands(node_cols),
         w_cols["op"],
         w_cols["f0"],
         w_cols["i0"],

@@ -1,8 +1,9 @@
-"""Multi-tenant schema estate: the tape linker and the gateway presets.
+"""Multi-tenant schema estate: registry + tape linker.
 
-``linker.py`` relocates and concatenates member location tapes into one
-linked tape so a mixed-endpoint batch validates in one batched launch
-(DESIGN.md §8).  The registry itself is not ported yet.
+``registry.py`` owns compiled-schema versions per endpoint id and builds
+one batched executor per link group; ``linker.py`` relocates and
+concatenates member location tapes into linked tapes so a mixed-endpoint
+batch validates in few batched launches (DESIGN.md §8, §14).
 """
 
 from .linker import (
@@ -14,6 +15,14 @@ from .linker import (
     segment_tape,
     signature_label,
 )
+from .registry import (
+    AdmitCounts,
+    LinkGroup,
+    RegistrationError,
+    SchemaEntry,
+    SchemaRegistry,
+    SchemaStats,
+)
 
 __all__ = [
     "LinkedTape",
@@ -23,4 +32,10 @@ __all__ = [
     "group_signature",
     "signature_label",
     "pow2_class",
+    "AdmitCounts",
+    "LinkGroup",
+    "RegistrationError",
+    "SchemaEntry",
+    "SchemaRegistry",
+    "SchemaStats",
 ]

@@ -18,10 +18,12 @@ from repro_torch.core import compile_schema
 from repro_torch.core.batch_executor import BatchValidator
 from repro_torch.core.tape import try_build_tape
 from repro_torch.data.doc_table import encode_batch, key_lanes
+from repro_torch.data.pipeline import AdmissionController
 from repro_torch.kernels import assertion_eval as ae_mod
+from repro_torch.kernels import assertion_eval_window as aw_mod
 from repro_torch.kernels import hash_match as hm_mod
 from repro_torch.kernels import ref
-from repro_torch.registry import link_tapes
+from repro_torch.registry import SchemaRegistry, link_tapes
 from repro_torch.registry.presets import GATEWAY_SCHEMAS
 
 pytestmark = pytest.mark.cuda
@@ -78,28 +80,89 @@ def test_assertion_eval_window_equals_plain(cuda, n, w):
     }
     nd = {k: _i32(v, cuda) for k, v in nodes.items()}
     wd = {k: _i32(v, cuda) for k, v in win.items()}
-    before = ae_mod.launches
-    got = ae_mod.assertion_eval_window_cuda(nd, wd)
-    assert ae_mod.launches == before + 1
+    before = aw_mod.launches
+    got = aw_mod.assertion_eval_window_cuda(nd, wd)
+    assert aw_mod.launches == before + 1
     assert torch.equal(got, ref.assertion_eval_window_ref(nd, wd))
 
 
-def test_gateway_mix_cuda_equals_cpu(cuda):
+@pytest.mark.parametrize("n,a", [(1, 1), (5000, 29), (70_000, 68)])
+def test_assertion_eval_equals_plain(cuda, n, a):
+    rng = np.random.default_rng(n * 11 + a)
+    nodes = {
+        "type": rng.integers(-1, 8, n).astype(np.int32),
+        "is_int": rng.integers(0, 2, n).astype(np.int32),
+        "num": rng.normal(0, 10, n).astype(np.float32),
+        "size": rng.integers(0, 20, n).astype(np.int32),
+        "acquired": rng.integers(-(2**31), 2**31, n).astype(np.int32),
+        "str_hash": _POOL[rng.integers(0, len(_POOL), n)],
+        "str_prefix": rng.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(np.uint32),
+    }
+    rows = {
+        "op": rng.integers(-1, 19, a).astype(np.int32),
+        "f0": rng.choice([0.0, 0.01, 0.5, 2.0, 3.0], a).astype(np.float32),
+        "i0": rng.integers(-3, 40, a).astype(np.int32),
+        "i1": rng.integers(0, 2, a).astype(np.int32),
+        "u0": nodes["str_prefix"][rng.integers(0, n, a), 0],
+        "u1": rng.integers(0, 2**32, a, dtype=np.uint64).astype(np.uint32),
+        "hash": nodes["str_hash"][rng.integers(0, n, a)],
+    }
+    nd = {k: _i32(v, cuda) for k, v in nodes.items()}
+    rd = {k: _i32(v, cuda) for k, v in rows.items()}
+    before = ae_mod.launches
+    got = ae_mod.assertion_eval_cuda(nd, rd)
+    assert ae_mod.launches == before + 1
+    assert torch.equal(got, ref.assertion_eval_ref(nd, rd))
+
+
+def _gateway_batch(batch: int):
     names = list(GATEWAY_SCHEMAS)
     tape = link_tapes(
         [try_build_tape(compile_schema(GATEWAY_SCHEMAS[n]))[0] for n in names], names=names
     )
     rng = random.Random(3)
     docs, ids = [], []
-    for i in range(256):
+    for i in range(batch):
         s = rng.randrange(len(names))
         ids.append(s)
         docs.append(rng.choice([{"prompt": "hi", "max_tokens": i}, {"input": "x" * (i % 3)},
                                 {"messages": [{"role": "user", "content": "c"}]}, {}]))
+    return tape, docs, ids, [names[s] for s in ids]
+
+
+def test_gateway_mix_cuda_equals_cpu(cuda):
+    tape, docs, ids, _ = _gateway_batch(256)
     table = encode_batch(docs, max_nodes=32)
-    before = (hm_mod.launches, ae_mod.launches)
+    before = (hm_mod.launches, aw_mod.launches)
     got = BatchValidator(tape).validate_ex(table, ids)
-    assert (hm_mod.launches, ae_mod.launches) == (before[0] + 1, before[1] + 1)
+    assert (hm_mod.launches, aw_mod.launches) == (before[0] + 1, before[1] + 1)
     want = BatchValidator(tape, device="cpu").validate_ex(table, ids)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_dense_gateway_launch_cuda_equals_cpu(cuda):
+    tape, docs, ids, _ = _gateway_batch(256)
+    table = encode_batch(docs, max_nodes=32)
+    before = (hm_mod.launches, ae_mod.launches)
+    bv = BatchValidator(tape, layout="dense")
+    got = bv.validate_ex(table, ids)
+    # the dense loop matches once per depth iteration
+    assert (hm_mod.launches, ae_mod.launches) == (before[0] + bv.max_depth, before[1] + 1)
+    want = BatchValidator(tape, device="cpu", layout="dense").validate_ex(table, ids)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("layout", ["csr", "dense"])
+def test_registry_admission_cuda_equals_cpu(cuda, layout):
+    _, docs, _, endpoints = _gateway_batch(300)
+    verdicts = []
+    for device in ("cuda", "cpu"):
+        reg = SchemaRegistry(device=device, layout=layout)
+        for name, schema in GATEWAY_SCHEMAS.items():
+            reg.register(name, schema)
+        ctrl = AdmissionController(registry=reg, endpoint="complete", batch_max_nodes=64)
+        verdicts.append([(v.outcome, v.valid, v.engine) for v in ctrl.admit_ex(docs, endpoints)])
+    assert verdicts[0] == verdicts[1]
+    assert any(engine == "batched" for _, _, engine in verdicts[0])

@@ -16,7 +16,7 @@ from repro.core.tape import AOP
 from repro.data.doc_table import _str_prefix8, key_lanes
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.assertion_eval import assertion_eval_window_cuda
+from repro_torch.kernels.assertion_eval_window import assertion_eval_window_cuda
 from repro_torch.kernels.hash_match import hash_match_cuda
 
 _KEYS = ["a", "b", "name", "kind", "value", "x" * 40, "y" * 40, "nested", "tags", ""]
@@ -243,3 +243,29 @@ def test_dispatch_rejects_other_devices():
         tops.hash_match(q, o, q, o)
     with pytest.raises(ValueError, match="mixed devices"):
         tops.hash_match(q, torch.zeros(2, dtype=torch.int32), q, o)
+
+
+# ---------------------------------------------------------------------------
+# build cache key
+# ---------------------------------------------------------------------------
+
+
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    import shutil
+
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("hash_match", "assertion_eval_window", "assertion_eval")
+    assert [p.name for p in build._sources("assertion_eval")] == ["assertion_eval.cu",
+                                                                  "eval_row.cuh"]
+    before = {name: build._target(name) for name in names}
+    header = csrc / "eval_row.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build._target(name) for name in names}
+    # an edit of the shared header rebuilds both assertion kernels, and only them
+    assert after["hash_match"] == before["hash_match"]
+    assert after["assertion_eval"] != before["assertion_eval"]
+    assert after["assertion_eval_window"] != before["assertion_eval_window"]
