@@ -10,8 +10,10 @@ Phases, each printed on its own lines:
    in parallel, with its time and ``ptxas`` register/shared-memory use;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    first on small adversarial cases, then on the inputs the main path gives
-   it, with CUDA-event times of device work only, the plain version's time
-   and the bound;
+   it, with CUDA-event times of device work only, each kernel's own
+   duration under the profiler, what both timers read for an empty kernel,
+   the plain version's time and the bound (``hash_match`` also at the dense
+   admission's largest call);
 4. main path: batched CSR validation of the five-endpoint gateway mix
    (B=4096 documents, max_nodes=64, linked tape) through
    ``BatchValidator.validate_ex``: docs/s, launch and encode times, launch
@@ -29,13 +31,16 @@ Phases, each printed on its own lines:
    launches per call, the ``AdmitCounts``, host ms by phase and the
    device-busy share of one profiled call; the verdicts are equal between
    the layouts, to a ``device="cpu"`` registry and, where decided on the
-   batched path, to the sequential ``Validator``.  The dense kernel is held
-   against its plain version at the inputs the dense admission gives it.
+   batched path, to the sequential ``Validator``.  Every kernel call of one
+   admission is held against its plain version: in the dense layout the 48
+   ``hash_match`` calls (16 depth iterations x 3 groups) and the 3
+   ``assertion_eval`` calls, each kernel timed at its largest call.
 
 Any mismatch or exception exits non-zero.  The last lines are the kernels
 JSON line (``launches`` counts the path each kernel serves: the CSR main
 path for the first two, the dense admission for ``assertion_eval``;
-``launches_by_path`` has every path's count), the card's name and power
+``launches_by_path`` has every path's count; ``hash_match``'s ``dense``
+holds its time, bound and launches in the dense admission), the card's name and power
 limit, and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device: without one, or
 without the rest of the repository beside it, it exits non-zero and prints
@@ -210,9 +215,42 @@ def device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def kernel_times(kernel: Callable[[], Any], plain: Callable[[], Any]) -> Dict[str, float]:
-    """Device-only times of a kernel and its plain version."""
-    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain)}
+def profiled_ms(fn: Callable[[], Any], kernel: str, reps: int = 20):
+    """Mean duration of the device kernel whose name contains ``kernel``
+    over ``reps`` calls of ``fn``, each after an L2 flush, as the profiler
+    (CUPTI) records it: the kernel alone, without the CUDA events' own cost
+    that ``device_ms`` includes.  None if the profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.key_averages() if kernel in ev.key]
+    count = sum(ev.count for ev in events)
+    total_us = sum(ev.self_device_time_total for ev in events)
+    return total_us / count / 1e3 if count and total_us > 0 else None
+
+
+def kernel_times(kernel: Callable[[], Any], plain: Callable[[], Any],
+                 symbol: str) -> Dict[str, Any]:
+    """Device-only times of a kernel and its plain version, and the kernel's
+    own duration under the profiler (``symbol``: its CUDA function name)."""
+    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "profiler_ms": profiled_ms(kernel, symbol)}
+
+
+def timing_floor() -> Dict[str, Any]:
+    """What the two timers read for a one-cycle spin kernel: the fixed cost
+    inside every ``ms`` (CUDA events) and ``profiler_ms`` of this run."""
+    def spin():
+        torch.cuda._sleep(1)
+
+    return {"ms": device_ms(spin), "profiler_ms": profiled_ms(spin, "spin_kernel")}
 
 
 # ---------------------------------------------------------------------------
@@ -305,14 +343,15 @@ def adversarial_cases() -> int:
     rng = np.random.default_rng(SEED)
     pool = _key_pool()
     count = 0
-    # hash_match: ragged N, several shared-memory chunks, owners -1 and -9
-    for n, m in [(1, 1), (7, 5), (300, 130), (1000, 600), (4097, 257)]:
+    # hash_match: N not a multiple of a block's 256 queries, M above the
+    # kernel's 1024 rows in shared memory, table owners drawn from
+    # {-1, -9, 0..3} (owner -1 matches owner -1), query owners from {-1, 0..3}
+    for n, m in [(1, 1), (7, 5), (300, 130), (1000, 600), (4097, 257), (1023, 1024),
+                 (1025, 1025), (3, 1100), (5000, 2500), (70_001, 20)]:
         q = _lanes(rng, n, pool)
         t = _lanes(rng, m, pool)
         q_owner = torch.from_numpy(rng.integers(-1, 4, n).astype(np.int32)).cuda()
-        t_owner = torch.from_numpy(
-            np.where(rng.random(m) < 0.1, -9, rng.integers(0, 4, m)).astype(np.int32)
-        ).cuda()
+        t_owner = torch.from_numpy(rng.choice([-1, -9, 0, 1, 2, 3], m).astype(np.int32)).cuda()
         _check_equal(f"hash_match n={n} m={m}", hash_match_cuda(q, q_owner, t, t_owner),
                      ref.hash_match_ref(q, q_owner, t, t_owner))
         count += 1
@@ -324,6 +363,19 @@ def adversarial_cases() -> int:
     _check_equal("hash_match first match", got, ref.hash_match_ref(q, zero1, t, zero3))
     if got.item() != 0:
         raise AssertionError("hash_match: duplicate rows must give the least row")
+    count += 1
+    # duplicate lanes under interleaved owners, with copies on both sides
+    # of a 1024-row staging chunk: each query's answer is its least row
+    # that carries its owner
+    q = _lanes(rng, 4, pool)
+    t = _lanes(rng, 2100, pool)
+    t_owner = torch.from_numpy(rng.choice([-1, -9, 0, 1], 2100).astype(np.int32)).cuda()
+    q_owner = torch.tensor([-1, 0, 1, 2], dtype=torch.int32).cuda()
+    for row in (5, 6, 700, 1023, 1024, 2099):
+        t[row] = q[row % 4]
+    got = hash_match_cuda(q, q_owner, t, t_owner)
+    _check_equal("hash_match duplicate rows, owners interleaved", got,
+                 ref.hash_match_ref(q, q_owner, t, t_owner))
     count += 1
 
     # assertion_eval_window: all 19 ops plus op -1, with the edges of
@@ -368,14 +420,16 @@ def adversarial_cases() -> int:
          ntype=rng.integers(-2, 40, n))
     count += 1
 
-    # assertion_eval (dense): ragged N and A around the 64 x 128 tile, every
-    # op code and op -1 rows, f0 = 0, prefix lengths and shifts outside 0..31
-    def dense_case(n: int, a: int, ops, f0=None, i0=None, num=None, ntype=None):
+    # assertion_eval (dense): N and A around the 256-node tile and the
+    # 128-row staging capacity, N * A leaving unaligned 16-byte ends, every
+    # op code and op -1 rows, op sets that load some node columns and not
+    # others (per row tile), f0 = 0, prefix lengths and shifts outside 0..31
+    def dense_case(n: int, a: int, ops, f0=None, i0=None, num=None, ntype=None, op=None):
         nodes = _node_cols(rng, pool, n, num=num, ntype=ntype)
         src = rng.integers(0, n, a)  # half the rows copy a node's prefix / hash
         same = rng.random(a) < 0.5
         rows = {
-            "op": rng.choice(np.asarray(ops), a),
+            "op": op if op is not None else rng.choice(np.asarray(ops), a),
             "f0": f0 if f0 is not None else rng.choice([0.0, 0.01, 0.5, 2.0, -3.0], a),
             "i0": i0 if i0 is not None else rng.integers(-2, 40, a),
             "i1": rng.integers(0, 2, a),
@@ -389,9 +443,19 @@ def adversarial_cases() -> int:
         _check_equal(f"assertion_eval n={n} a={a} ops={list(ops)[:3]}...",
                      assertion_eval_cuda(nd, rd), ref.assertion_eval_ref(nd, rd))
 
-    for n, a in [(1, 1), (1, 255), (255, 257), (257, 255), (4099, 1), (65, 129), (3, 300)]:
+    for n, a in [(1, 1), (257, 1), (255, 15), (1001, 16), (3, 17), (4099, 26), (513, 129),
+                 (33, 4099), (1, 255), (255, 257), (257, 255), (4099, 1), (65, 129), (3, 300),
+                 (70_001, 29)]:
         dense_case(n, a, all_ops)
         count += 1
+    dense_case(1001, 26, [-1])  # no live row: nothing but the zeros
+    dense_case(1001, 26, [AOP.STR_EQ, AOP.STR_EQ_PRE, -1])  # hash lanes only
+    # two row tiles reading different node columns
+    num_ops = [AOP.NUM_GE, AOP.NUM_MULTIPLE, AOP.CONST_NUM]
+    str_ops = [AOP.STR_EQ, AOP.STR_PREFIX, AOP.OBJ_HAS_SLOT]
+    dense_case(517, 200, num_ops + str_ops, op=np.where(
+        np.arange(200) < 128, rng.choice(num_ops, 200), rng.choice(str_ops, 200)))
+    count += 3
     n = 4096
     f0 = rng.choice([0.01, 0.1, 0.5, 1.0, 2.0, 3.0, 0.0, 1e-3, 7.5], 64)
     k = rng.integers(-600000, 600000, n).astype(np.float64)
@@ -453,27 +517,65 @@ def zero_launch_counts() -> None:
     hash_match.launches = assertion_eval_window.launches = assertion_eval.launches = 0
 
 
+def _hash_match_work(args, got) -> Tuple[int, int]:
+    """(bytes, operations) that hash_match needs on these inputs."""
+    q_lanes, q_owner, t_lanes, t_owner = args
+    n, m = q_lanes.shape[0], t_lanes.shape[0]
+    # bytes: every owner and output word and the table once; the 32 lane
+    # bytes of a query only where its owner occurs among the table's owners
+    occurs = int(torch.isin(q_owner, t_owner).sum().item())
+    nbytes = 4 * n + 32 * occurs + 36 * m + 4 * n
+    # operations: one owner compare per row scanned (up to the first full
+    # match, row `got`, or over all M rows) and eight lane compares for each
+    # scanned row with the query's owner
+    stop = torch.where(got >= 0, got + 1, m)
+    scanned = torch.arange(m, device=got.device)[None, :] < stop[:, None]
+    owner_eq = q_owner[:, None] == t_owner[None, :]
+    nops = int(stop.sum().item()) + 8 * int((scanned & owner_eq).sum().item())
+    return nbytes, nops
+
+
 def hash_match_at_main(args) -> Dict[str, Any]:
     from repro_torch.kernels import ref
     from repro_torch.kernels.hash_match import hash_match_cuda
 
-    q_lanes, q_owner, t_lanes, t_owner = args
-    n, m = q_lanes.shape[0], t_lanes.shape[0]
+    n, m = args[0].shape[0], args[2].shape[0]
     got = hash_match_cuda(*args)
-    want = ref.hash_match_ref(*args)
-    err = _check_equal("hash_match at the main path's inputs", got, want)
-    # bytes this run's data needs: every owner and output word, the lanes of
-    # queries that scan (owner != -1), the table once
-    active = int((q_owner != -1).sum().item())
-    nbytes = 4 * n + 32 * active + 36 * m + 4 * n
-    # operations: nine int32 compares per row scanned, scans ending at the
-    # first match (row `got`) or running over all M rows
-    scanned = torch.where(got >= 0, got + 1, m)[q_owner != -1].sum().item()
-    nops = 9 * int(scanned)
-    times = kernel_times(lambda: hash_match_cuda(*args), lambda: ref.hash_match_ref(*args))
+    err = _check_equal("hash_match at the main path's inputs", got, ref.hash_match_ref(*args))
+    nbytes, nops = _hash_match_work(args, got)
+    times = kernel_times(lambda: hash_match_cuda(*args), lambda: ref.hash_match_ref(*args),
+                         "hash_match_kernel")
     return _kernel_row("hash_match", "src/repro/kernels/hash_match.py:78",
                        "src/repro_torch/csrc/hash_match.cu", err, times,
                        nbytes, nops, f"N={n} M={m}")
+
+
+def hash_match_at_dense(calls) -> Dict[str, Any]:
+    """hash_match timed at one dense admission's largest call: among the
+    calls (one per depth iteration and link group, each already held
+    against the plain version in ``registry_phase``) of the largest shape
+    N x M, the one whose queries load the most lanes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hash_match import hash_match_cuda
+
+    def size(args):
+        return (args[0].shape[0] * args[2].shape[0],
+                int(torch.isin(args[1], args[3]).sum().item()))
+
+    args = max(calls, key=size)
+    n, m = args[0].shape[0], args[2].shape[0]
+    got = hash_match_cuda(*args)
+    err = _check_equal("hash_match at the dense admission's largest call", got,
+                       ref.hash_match_ref(*args))
+    nbytes, nops = _hash_match_work(args, got)
+    times = kernel_times(lambda: hash_match_cuda(*args), lambda: ref.hash_match_ref(*args),
+                         "hash_match_kernel")
+    row = _kernel_row("hash_match", "src/repro/kernels/hash_match.py:78",
+                      "src/repro_torch/csrc/hash_match.cu", err, times, nbytes, nops,
+                      f"N={n} M={m}, {size(args)[1]} queries with a table owner, "
+                      f"{len(calls)} calls checked", where="the dense admission's largest call")
+    return {k: row[k] for k in ("shape", "ms", "plain_ms", "profiler_ms", "bound_ms",
+                                "bound_by", "max_abs_err", "bytes", "ops")}
 
 
 def assertion_eval_window_at_main(args) -> Dict[str, Any]:
@@ -495,7 +597,8 @@ def assertion_eval_window_at_main(args) -> Dict[str, Any]:
     # operations: about ten per live slot (the selected op's compares)
     nops = 10 * n_live
     times = kernel_times(lambda: assertion_eval_window_cuda(node_cols, w_cols),
-                         lambda: ref.assertion_eval_window_ref(node_cols, w_cols))
+                         lambda: ref.assertion_eval_window_ref(node_cols, w_cols),
+                         "assertion_eval_window_kernel")
     return _kernel_row("assertion_eval_window", "src/repro/kernels/assertion_eval.py:350",
                        "src/repro_torch/csrc/assertion_eval_window.cu", err, times,
                        nbytes, nops, f"N={n} W={w}")
@@ -504,9 +607,23 @@ def assertion_eval_window_at_main(args) -> Dict[str, Any]:
 def assertion_eval_at_main(calls) -> Dict[str, Any]:
     """Every dense call of one registry admission against the plain version;
     the largest call (by N x A) is timed."""
+    from repro_torch.core.tape import AOP
     from repro_torch.kernels import ref
     from repro_torch.kernels.assertion_eval import assertion_eval_cuda
 
+    # (bytes a node, the ops that read the column), as csrc/assertion_eval.cu
+    # loads them: type, is_int, num, size, acquired, prefix, hash
+    column_readers = (
+        (4, set(range(19))),
+        (4, {AOP.TYPE_MASK}),
+        (4, {AOP.NUM_GE, AOP.NUM_GT, AOP.NUM_LE, AOP.NUM_LT, AOP.NUM_MULTIPLE,
+             AOP.CONST_BOOL, AOP.CONST_NUM}),
+        (4, {AOP.STR_MINLEN, AOP.STR_MAXLEN, AOP.ARR_MINLEN, AOP.ARR_MAXLEN,
+             AOP.OBJ_MINPROPS, AOP.OBJ_MAXPROPS, AOP.STR_PREFIX}),
+        (4, {AOP.OBJ_HAS_SLOT}),
+        (8, {AOP.STR_PREFIX}),
+        (32, {AOP.STR_EQ, AOP.STR_EQ_PRE}),
+    )
     err = 0.0
     for node_cols, asrt_cols in calls:
         err = max(err, _check_equal(
@@ -515,24 +632,32 @@ def assertion_eval_at_main(calls) -> Dict[str, Any]:
     node_cols, asrt_cols = max(
         calls, key=lambda c: c[0]["type"].shape[0] * c[1]["op"].shape[0])
     n, a = node_cols["type"].shape[0], asrt_cols["op"].shape[0]
-    # bytes: each output byte written once, each node's 60 and each row's
-    # 56 operand bytes read once
-    nbytes = n * a + 60 * n + 56 * a
+    # bytes: each output byte written once, each row's 56 operand bytes and
+    # each node column that some row's op reads, once
+    ops = set(asrt_cols["op"].tolist())
+    node_bytes = sum(width for width, readers in column_readers if ops & readers)
+    nbytes = n * a + node_bytes * n + 56 * a
     # operations: about ten per element of a live row (op >= 0)
     nops = 10 * n * int((asrt_cols["op"] >= 0).sum().item())
     times = kernel_times(lambda: assertion_eval_cuda(node_cols, asrt_cols),
-                         lambda: ref.assertion_eval_ref(node_cols, asrt_cols))
+                         lambda: ref.assertion_eval_ref(node_cols, asrt_cols),
+                         "assertion_eval_kernel")
     return _kernel_row("assertion_eval", "src/repro/kernels/assertion_eval.py:227",
                        "src/repro_torch/csrc/assertion_eval.cu", err, times,
-                       nbytes, nops, f"N={n} A={a}, {len(calls)} calls checked")
+                       nbytes, nops, f"N={n} A={a}, {len(calls)} calls checked",
+                       where="the dense admission's largest call")
 
 
-def _kernel_row(name, replaces, source, err, times, nbytes, nops, shape):
+def _kernel_row(name, replaces, source, err, times, nbytes, nops, shape,
+                where="the main path's inputs"):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = nops / CUDA_CORE_OPS_PER_S * 1e3
     bound_ms, bound_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
-    print(f"[kernels] {name} at the main path's inputs ({shape}): equal; kernel "
-          f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, bound "
+    prof = times["profiler_ms"]
+    print(f"[kernels] {name} at {where} ({shape}): equal; kernel "
+          f"{times['ms']:.4f} ms (profiler: "
+          f"{'not measured' if prof is None else f'{prof:.4f} ms'}), plain "
+          f"{times['plain_ms']:.4f} ms, bound "
           f"{bound_ms:.5f} ms by {bound_by} ({nbytes} B at 3.35 TB/s, {nops} ops at 67 T/s)")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -666,8 +791,17 @@ def profile(run: Callable[[], Any], tag: str) -> Dict[str, Any]:
               f"kernels and copies, of which copies {copy_ms:.3f} ms")
         for ms, count, key in rows[:10]:
             print(f"[{tag}]   {ms:8.4f} ms  x{count:<4d} {key[:90]}")
+    # the port's own kernels, by their CUDA function names
+    ours = {}
+    for name in KERNELS:
+        hits = [r for r in rows if f"{name}_kernel(" in r[2]]
+        ours[name] = {"ms": sum(r[0] for r in hits), "calls": sum(r[1] for r in hits)}
+    if busy_ms > 0:
+        print(f"[{tag}] the port's kernels: " + ", ".join(
+            f"{name} {v['ms']:.4f} ms in {v['calls']} calls "
+            f"({100 * v['ms'] / busy_ms:.1f}% of device busy)" for name, v in ours.items()))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_calls": calls,
-            "copy_ms": copy_ms}
+            "copy_ms": copy_ms, "kernels": ours}
 
 
 def admission_controller(layout: str, device=None):
@@ -689,7 +823,8 @@ def _verdict_rows(verdicts) -> List[tuple]:
 
 
 def registry_phase(layout: str, docs, endpoints, oracle) -> Dict[str, Any]:
-    """Registry admission of the gateway mix in one executor layout."""
+    """Registry admission of the gateway mix in one executor layout; returns
+    (besides the numbers) every kernel input of its first call."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.assertion_eval_window import assertion_eval_window_cuda
     from repro_torch.kernels.hash_match import hash_match_cuda
@@ -755,7 +890,7 @@ def registry_phase(layout: str, docs, endpoints, oracle) -> Dict[str, Any]:
     return {"admit_ms": admit_ms, "requests_per_s": len(docs) / (admit_ms / 1e3),
             "launches": launches, "launches_per_call": per_call, "counts": counts,
             "host_ms_by_phase": host, "profile": prof,
-            "verdicts": verdicts, "dense_calls": captured["assertion_eval"]}
+            "verdicts": verdicts, "captured": captured}
 
 
 def run() -> int:
@@ -775,6 +910,10 @@ def run() -> int:
     build()
     print(f"[kernels] {adversarial_cases()} adversarial cases equal to the plain versions "
           "(all 19 ops + op -1, NUM_MULTIPLE / STR_PREFIX / shift edges, -1/-9 owners)")
+
+    floor = timing_floor()
+    print(f"[kernels] timing floor, a one-cycle spin kernel: {floor['ms']:.4f} ms by CUDA "
+          f"events (the kernel 'ms'), {floor['profiler_ms']} ms by the profiler")
 
     linked, names, docs, ids = gateway(BATCH)
     t0 = time.perf_counter()
@@ -820,14 +959,17 @@ def run() -> int:
     if registry["csr"].pop("verdicts") != registry["dense"].pop("verdicts"):
         raise AssertionError("registry admission: the csr and dense layouts disagree")
     print("[registry] the csr and dense layouts give equal verdicts")
-    kernels.append(assertion_eval_at_main(registry["dense"].pop("dense_calls")))
-    registry["csr"].pop("dense_calls")
+    registry["csr"].pop("captured")
+    dense_calls = registry["dense"].pop("captured")
+    kernels[0]["dense"] = hash_match_at_dense(dense_calls["hash_match"])
+    kernels.append(assertion_eval_at_main(dense_calls["assertion_eval"]))
     for row in kernels:
         row["launches_by_path"] = {
             "main": main["launches"][row["name"]],
             **{f"registry_{k}": v["launches"][row["name"]] for k, v in registry.items()},
         }
     kernels[-1]["launches"] = registry["dense"]["launches"]["assertion_eval"]
+    kernels[0]["dense"]["launches"] = registry["dense"]["launches"]["hash_match"]
 
     print(json.dumps({"main_path": {
         "card": smi, "batch": BATCH, "max_nodes": MAX_NODES,
@@ -836,7 +978,7 @@ def run() -> int:
         "valid_share_of_decided": main["valid_share_of_decided"], "profile": prof,
         "host_ms_by_phase": host, "registry": registry,
     }}))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "timing_floor": floor}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -4,54 +4,116 @@
 // Replaces the Pallas TPU kernel `assertion_eval_pallas` (src/repro/kernels/
 // assertion_eval.py, body `_assertion_kernel` plus the shared `_eval_rows`).
 // The TPU version walks (256, 256) VMEM blocks of the (nodes x rows) space,
-// computes every op's candidate for every element and selects by op code; its
-// wrapper pads N and A to block multiples with op -1 rows.  Here a block owns
-// a tile of kNodeTile nodes x kRowTile rows: it stages both tiles' operands in
-// shared memory (60 bytes a node, 56 a row), then its threads walk the tile
-// with the row index fastest, so neighbouring threads store neighbouring
-// bytes of one output row.  The ragged edges of N and A are masked here; no
-// padding is added.  The op evaluation is the shared evaluator of
-// eval_row.cuh (rounding and shift rules there).
+// computes every op's candidate for every element and selects by op code;
+// its wrapper pads N and A to block multiples with op -1 rows.
 //
-// Bound on the H100: memory.  The N*A output bytes dominate what must move
-// (plus 60 bytes a node and 56 a row, each read once); each element costs
-// one switch-selected op of about ten instructions.
+// Bound on the H100: memory -- the N*A output bytes and the node columns
+// the rows' ops read, each once -- with the op dispatch close behind: a
+// branch tree over 19 op codes for every element costs more issue time
+// than the bytes take.  The design keeps every warp on one op at a time,
+// dispatches per run of rows, and keeps every access wide:
+//  - a thread owns kNodesPerThread nodes of a kTile-node tile and walks
+//    the staged rows in the same order as the rest of its block, each row's
+//    operands read once for its nodes;
+//  - the rows are staged once per block in shared memory and read as
+//    broadcasts, sorted by op code (stably) while staging, so a tile's rows
+//    form at most 20 runs (19 ops and op -1): the evaluator (eval_row.cuh) is
+//    dispatched once per run and each step of a run is that op's body
+//    alone, with no divergence; each result goes to the row's own column;
+//  - while staging, the block collects which ops occur, and a node column
+//    is loaded (coalesced, into registers) only when some staged op reads
+//    it, so the 32 hash bytes and the 8 prefix bytes of a node move only
+//    for rows that compare them; the loads are issued as soon as the op set
+//    is known, so their round trip overlaps the rest of the staging;
+//  - a persistent grid walks the tiles; each tile's nodes x A bytes are
+//    collected in shared memory and then written with coalesced 16-byte
+//    stores.  When the block covers all rows (A <= kRowCap) the tile is one
+//    contiguous range of the row-major output: the buffer is laid out from
+//    the 16-byte boundary below the range's start and the partial chunks at
+//    either end are stored byte by byte.  Wider tapes are cut into
+//    kRowCap-row tiles, each restaged, with per-byte stores.
+// The ragged edges of N and A are masked here; no padding is added.
+// Rounding and shift rules are the evaluator's (eval_row.cuh).
 
 #include "eval_row.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kNodeTile = 64;   // nodes staged per block
-constexpr int kRowTile = 128;   // assertion rows staged per block
-constexpr int kMaxRowTiles = 65535;  // grid.y limit
+constexpr int kTile = 256;                 // nodes per tile
+constexpr int kNodesPerThread = 2;         // nodes a thread evaluates per row step
+constexpr int kThreads = kTile / kNodesPerThread;
+constexpr int kRowCap = 128;               // assertion rows staged per block
+constexpr int kNoOp = blaze::OBJ_HAS_SLOT + 1;  // sort key of an op outside 0..18
 
-// operands staged in shared memory
-struct TileNode {
-  const int* s_isint;
-  const int* s_acq;
-  const int2* s_prefix;
-  const int4* s_hash;  // 2 x int4 per node
-  int j;
-  __device__ int is_int() const { return s_isint[j]; }
-  __device__ int acquired() const { return s_acq[j]; }
-  __device__ int2 prefix() const { return s_prefix[j]; }
-  __device__ void hash(int4& a, int4& b) const { a = s_hash[2 * j]; b = s_hash[2 * j + 1]; }
+// the node columns each op reads (type is read by every op)
+__host__ __device__ constexpr unsigned bit(int op) { return 1u << op; }
+constexpr unsigned kReadsIsInt = bit(blaze::TYPE_MASK);
+constexpr unsigned kReadsNum = bit(blaze::NUM_GE) | bit(blaze::NUM_GT) | bit(blaze::NUM_LE) |
+                               bit(blaze::NUM_LT) | bit(blaze::NUM_MULTIPLE) |
+                               bit(blaze::CONST_BOOL) | bit(blaze::CONST_NUM);
+constexpr unsigned kReadsSize = bit(blaze::STR_MINLEN) | bit(blaze::STR_MAXLEN) |
+                                bit(blaze::ARR_MINLEN) | bit(blaze::ARR_MAXLEN) |
+                                bit(blaze::OBJ_MINPROPS) | bit(blaze::OBJ_MAXPROPS) |
+                                bit(blaze::STR_PREFIX);
+constexpr unsigned kReadsAcq = bit(blaze::OBJ_HAS_SLOT);
+constexpr unsigned kReadsPrefix = bit(blaze::STR_PREFIX);
+constexpr unsigned kReadsHash = bit(blaze::STR_EQ) | bit(blaze::STR_EQ_PRE);
+
+// node operands held in registers
+struct RegNode {
+  int ntype, isint, size, acq;
+  float num;
+  int2 pfx;
+  int4 ha, hb;
+  __device__ int is_int() const { return isint; }
+  __device__ int acquired() const { return acq; }
+  __device__ int2 prefix() const { return pfx; }
+  __device__ void hash(int4& a, int4& b) const { a = ha; b = hb; }
 };
 
-struct TileRow {
-  const int* s_i1;
-  const int* s_u0;
-  const int* s_u1;
+// node i's columns that the staged ops read (`used`: a bit per op code);
+// the others, and every column of a thread without a node, stay 0
+__device__ __forceinline__ RegNode load_node(
+    const int* __restrict__ n_type, const int* __restrict__ n_isint,
+    const float* __restrict__ n_num, const int* __restrict__ n_size,
+    const int* __restrict__ n_acq, const int4* __restrict__ n_hash,
+    const int2* __restrict__ n_prefix, long long i, bool live, unsigned used) {
+  RegNode v{0, 0, 0, 0, 0.0f, make_int2(0, 0), make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
+  if (!live || !used) return v;
+  v.ntype = n_type[i];
+  if (used & kReadsIsInt) v.isint = n_isint[i];
+  if (used & kReadsNum) v.num = n_num[i];
+  if (used & kReadsSize) v.size = n_size[i];
+  if (used & kReadsAcq) v.acq = n_acq[i];
+  if (used & kReadsPrefix) v.pfx = n_prefix[i];
+  if (used & kReadsHash) {
+    v.ha = n_hash[2 * i];
+    v.hb = n_hash[2 * i + 1];
+  }
+  return v;
+}
+
+// row operands staged in shared memory, at the row's place `q` in op order
+struct StagedRow {
+  int i1_;
+  const int2* s_u;     // (u0, u1) per row
   const int4* s_hash;  // 2 x int4 per row
-  int r;
-  __device__ int i1() const { return s_i1[r]; }
-  __device__ unsigned u0() const { return static_cast<unsigned>(s_u0[r]); }
-  __device__ unsigned u1() const { return static_cast<unsigned>(s_u1[r]); }
-  __device__ void hash(int4& a, int4& b) const { a = s_hash[2 * r]; b = s_hash[2 * r + 1]; }
+  int q;
+  __device__ int i1() const { return i1_; }
+  __device__ unsigned u0() const { return static_cast<unsigned>(s_u[q].x); }
+  __device__ unsigned u1() const { return static_cast<unsigned>(s_u[q].y); }
+  __device__ void hash(int4& a, int4& b) const { a = s_hash[2 * q]; b = s_hash[2 * q + 1]; }
 };
 
-__global__ void assertion_eval_kernel(
+// shared-memory bytes for a block staging `cap` rows: per row the head
+// (16 B), hash (32 B), u0/u1 (8 B), sort key, op and run end (12 B); the
+// tile's output bytes and 32 bytes of alignment slack
+__host__ __device__ constexpr size_t smem_bytes(int cap) {
+  return static_cast<size_t>(cap) * (3 * sizeof(int4) + sizeof(int2) + 3 * sizeof(int)) +
+         static_cast<size_t>(kTile) * cap + 32;
+}
+
+__global__ void __launch_bounds__(kThreads) assertion_eval_kernel(
     const int* __restrict__ n_type, const int* __restrict__ n_isint,
     const float* __restrict__ n_num, const int* __restrict__ n_size,
     const int* __restrict__ n_acq,
@@ -61,56 +123,134 @@ __global__ void assertion_eval_kernel(
     const int* __restrict__ a_i0, const int* __restrict__ a_i1,
     const int* __restrict__ a_u0, const int* __restrict__ a_u1,
     const int4* __restrict__ a_hash,  // (A, 8) as 2 x int4
-    int8_t* __restrict__ out,         // (N, A)
+    int8_t* __restrict__ out,         // (N, A), 16-byte aligned
     int n, int a) {
-  __shared__ int sn_type[kNodeTile], sn_isint[kNodeTile], sn_size[kNodeTile], sn_acq[kNodeTile];
-  __shared__ float sn_num[kNodeTile];
-  __shared__ int2 sn_prefix[kNodeTile];
-  __shared__ int4 sn_hash[2 * kNodeTile];
-  __shared__ int sa_op[kRowTile], sa_i0[kRowTile], sa_i1[kRowTile], sa_u0[kRowTile],
-      sa_u1[kRowTile];
-  __shared__ float sa_f0[kRowTile];
-  __shared__ int4 sa_hash[2 * kRowTile];
+  extern __shared__ int4 smem[];
+  __shared__ unsigned s_used;
+  const int cap = min(a, kRowCap);
+  // the staged rows sorted by op code (stable): s_head[q] = (row, f0 bits,
+  // i0, i1), s_op[q] its op, s_end[q] the end of its run of equal ops
+  int4* s_head = smem;
+  int4* s_hash = s_head + cap;  // 2 x int4 per row
+  int8_t* s_out = reinterpret_cast<int8_t*>(s_hash + 2 * cap);  // the tile's bytes
+  int2* s_u = reinterpret_cast<int2*>(s_out + static_cast<size_t>(kTile) * cap + 32);
+  int* s_key = reinterpret_cast<int*>(s_u + cap);  // sort key by original row
+  int* s_op = s_key + cap;
+  int* s_end = s_op + cap;
 
-  const int n0 = blockIdx.x * kNodeTile;
-  const int a0 = blockIdx.y * kRowTile;
-  const int nodes = min(kNodeTile, n - n0);
-  const int rows = min(kRowTile, a - a0);
-  for (int j = threadIdx.x; j < nodes; j += blockDim.x) {
-    const int i = n0 + j;
-    sn_type[j] = n_type[i];
-    sn_isint[j] = n_isint[i];
-    sn_num[j] = n_num[i];
-    sn_size[j] = n_size[i];
-    sn_acq[j] = n_acq[i];
-    sn_prefix[j] = n_prefix[i];
-  }
-  for (int h = threadIdx.x; h < 2 * nodes; h += blockDim.x) {
-    sn_hash[h] = n_hash[2 * static_cast<long long>(n0) + h];
-  }
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    const int k = a0 + r;
-    sa_op[r] = a_op[k];
-    sa_f0[r] = a_f0[k];
-    sa_i0[r] = a_i0[k];
-    sa_i1[r] = a_i1[k];
-    sa_u0[r] = a_u0[k];
-    sa_u1[r] = a_u1[k];
-  }
-  for (int h = threadIdx.x; h < 2 * rows; h += blockDim.x) {
-    sa_hash[h] = a_hash[2 * a0 + h];
-  }
-  __syncthreads();
+  const int node_tiles = (n - 1) / kTile + 1;
+  const int row_tiles = (a - 1) / kRowCap + 1;
+  const long long tiles = static_cast<long long>(node_tiles) * row_tiles;
+  int staged = -1;
+  unsigned used = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int rt = static_cast<int>(t / node_tiles);
+    const int nt = static_cast<int>(t - static_cast<long long>(rt) * node_tiles);
+    const int a0 = rt * kRowCap;
+    const int rows = min(kRowCap, a - a0);
+    const int n0 = nt * kTile;
+    const int nodes = min(kTile, n - n0);
 
-  const int elems = nodes * rows;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int j = e / rows;
-    const int r = e - j * rows;
-    const bool pass = blaze::eval_row(
-        sa_op[r], sa_f0[r], sa_i0[r], sn_type[j], sn_num[j], sn_size[j],
-        TileNode{sn_isint, sn_acq, sn_prefix, sn_hash, j},
-        TileRow{sa_i1, sa_u0, sa_u1, sa_hash, r});
-    out[static_cast<long long>(n0 + j) * a + a0 + r] = pass ? 1 : 0;
+    // block-uniform: the rows are staged once per block unless A > kRowCap
+    const bool restage = rt != staged;
+    if (restage) {  // first the ops, to know which node columns to load
+      if (threadIdx.x == 0) s_used = 0;
+      __syncthreads();  // the previous rows are no longer read
+      for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+        const int op = a_op[a0 + r];
+        const int key = op >= 0 && op <= blaze::OBJ_HAS_SLOT ? op : kNoOp;
+        s_key[r] = key;
+        if (key != kNoOp) atomicOr(&s_used, bit(key));
+      }
+      __syncthreads();
+      used = s_used;
+    }
+    // the node loads are issued before the rest of the staging, so their
+    // round trip overlaps it
+    RegNode node[kNodesPerThread];
+#pragma unroll
+    for (int v = 0; v < kNodesPerThread; ++v) {
+      const int j = threadIdx.x + v * kThreads;
+      node[v] = load_node(n_type, n_isint, n_num, n_size, n_acq, n_hash, n_prefix, n0 + j,
+                          j < nodes, used);
+    }
+    if (restage) {  // then each row's operands at its rank in op order
+      for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+        const int key = s_key[r];
+        int rank = 0, end = 0;
+        for (int x = 0; x < rows; ++x) {
+          const int kx = s_key[x];
+          rank += kx < key || (kx == key && x < r);
+          end += kx <= key;
+        }
+        const long long k = a0 + r;
+        s_head[rank] = make_int4(r, __float_as_int(a_f0[k]), a_i0[k], a_i1[k]);
+        s_u[rank] = make_int2(a_u0[k], a_u1[k]);
+        s_hash[2 * rank] = a_hash[2 * k];
+        s_hash[2 * rank + 1] = a_hash[2 * k + 1];
+        s_op[rank] = key;
+        s_end[rank] = end;
+      }
+      __syncthreads();
+      staged = rt;
+    }
+
+    // byte (j, r) of the tile sits at s_out[pre + j * rows + r]; `pre`
+    // aligns a contiguous tile's buffer to the output's 16-byte chunks
+    const bool contiguous = rows == a;
+    const long long g0 = static_cast<long long>(n0) * a + a0;
+    const int pre = contiguous ? static_cast<int>(g0 & 15) : 0;
+    // one dispatch per run of equal ops, the same runs for every thread;
+    // bytes of nodes past the tile's end land in the buffer's slack or are
+    // overwritten, and are never stored
+    int8_t* dst = s_out + pre + threadIdx.x * rows;
+    const int stride = kThreads * rows;
+    for (int p = 0; p < rows;) {
+      const int end = s_end[p];
+      const bool live = blaze::with_op(s_op[p], [&](auto tag) {
+        for (int q = p; q < end; ++q) {
+          const int4 h = s_head[q];
+          const StagedRow row{h.w, s_u, s_hash, q};
+#pragma unroll
+          for (int v = 0; v < kNodesPerThread; ++v) {
+            dst[v * stride + h.x] =
+                blaze::eval_op<decltype(tag)::value>(__int_as_float(h.y), h.z, node[v].ntype,
+                                                     node[v].num, node[v].size, node[v], row)
+                    ? 1
+                    : 0;
+          }
+        }
+      });
+      if (!live) {  // op -1 rows
+        for (int q = p; q < end; ++q) {
+#pragma unroll
+          for (int v = 0; v < kNodesPerThread; ++v) dst[v * stride + s_head[q].x] = 0;
+        }
+      }
+      p = end;
+    }
+    __syncthreads();
+
+    if (contiguous) {
+      // one contiguous output range [g0, g0 + nodes * a)
+      const int end = pre + nodes * a;
+      int8_t* base = out + (g0 - pre);  // 16-byte aligned
+      for (int c = threadIdx.x; c < (end + 15) / 16; c += blockDim.x) {
+        const int lo = 16 * c;
+        if (lo >= pre && lo + 16 <= end) {
+          *reinterpret_cast<int4*>(base + lo) = *reinterpret_cast<const int4*>(s_out + lo);
+        } else {
+          for (int b = max(lo, pre); b < min(lo + 16, end); ++b) base[b] = s_out[b];
+        }
+      }
+    } else {
+      // a row tile: `nodes` runs of `rows` bytes, A bytes apart
+      for (int e = threadIdx.x; e < nodes * rows; e += blockDim.x) {
+        const int jj = e / rows;
+        out[g0 + static_cast<long long>(jj) * a + (e - jj * rows)] = s_out[e];
+      }
+    }
+    __syncthreads();  // the buffer is free for the next tile
   }
 }
 
@@ -123,10 +263,22 @@ extern "C" int assertion_eval(const void* n_type, const void* n_isint, const voi
                               const void* a_u1, const void* a_hash, void* out, int n, int a,
                               void* stream) {
   if (n > 0 && a > 0) {
-    const int row_tiles = (a - 1) / kRowTile + 1;
-    if (row_tiles > kMaxRowTiles) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((n - 1) / kNodeTile + 1, row_tiles);
-    assertion_eval_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const size_t smem = smem_bytes(a < kRowCap ? a : kRowCap);
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, assertion_eval_kernel,
+                                                          kThreads, smem);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long tiles = static_cast<long long>((n - 1) / kTile + 1) *
+                            ((a - 1) / kRowCap + 1);
+    const long long resident_blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+    const int blocks = static_cast<int>(tiles < resident_blocks ? tiles : resident_blocks);
+    assertion_eval_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(n_type), static_cast<const int*>(n_isint),
         static_cast<const float*>(n_num), static_cast<const int*>(n_size),
         static_cast<const int*>(n_acq), static_cast<const int4*>(n_hash),

@@ -5,13 +5,18 @@ row of the tape, with the 19-op mini-ISA and the paper's precondition
 semantics (wrong type => pass for AND rows).  Replaces the Pallas TPU kernel
 ``assertion_eval_pallas`` (``repro/kernels/assertion_eval.py``).
 
-What bounds it on the H100, and the design: the work is memory-bound (one
-output byte per element, plus 60 bytes per node and 56 per row read once).
-A block stages a tile of 64 nodes and 128 rows in shared memory and its
-threads walk the tile with rows fastest, so the int8 stores coalesce.  The
-kernel masks the ragged edges of N and A itself, so unlike the JAX wrapper
+What bounds it on the H100, and the design: memory (one output byte per
+element, plus the node columns the rows' ops read and 56 bytes per row,
+each once), with the per-element op dispatch close behind.  Rows are
+staged once per block in shared memory, sorted by op code, so the
+evaluator is dispatched once per run of equal ops and the warp never
+diverges; each thread evaluates two nodes per row step, and a node's hash
+lanes, prefix and other columns are loaded only when a staged op reads
+them.  A persistent grid walks 256-node tiles, collects each tile's bytes
+in shared memory and writes them as coalesced 16-byte stores.  The kernel
+masks the ragged edges of N and A itself, so unlike the JAX wrapper
 nothing is padded with op -1 rows.  Source: ``csrc/assertion_eval.cu``,
-with the per-element evaluator shared with the windowed kernel in
+with the evaluator shared with the windowed kernel in
 ``csrc/eval_row.cuh``.
 """
 
@@ -61,6 +66,8 @@ def assertion_eval_cuda(node_cols: dict, asrt_cols: dict) -> torch.Tensor:
     if n >= 2**31 or a >= 2**31:
         raise ValueError(f"assertion_eval: N={n} and A={a} must fit in int32")
     out = torch.empty((n, a), dtype=torch.int8, device=device)
+    if out.data_ptr() % 16:  # the kernel stores 16-byte chunks
+        raise RuntimeError("assertion_eval: output buffer is not 16-byte aligned")
     lib = load("assertion_eval")
     fn = lib.assertion_eval
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

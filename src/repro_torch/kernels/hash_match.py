@@ -1,17 +1,21 @@
 """CUDA kernel: semi-perfect-hash property matching (Blaze §4.1 on Hopper).
 
 For every document node, find the least property-table row whose (key hash,
-owner) pair equals the node's.  Replaces the Pallas TPU kernel
-``hash_match_pallas`` (``repro/kernels/hash_match.py``).
+owner) pair equals the node's; every owner matches an equal owner, -1
+included.  Replaces the Pallas TPU kernel ``hash_match_pallas``
+(``repro/kernels/hash_match.py``).
 
-What bounds it on the H100, and the design: the work is memory-bound
-(36 bytes read and 4 written per query; the table is tens to a few hundred
-rows).  One thread owns one query; each block stages the table in shared
-memory in chunks and scans it in ascending row order, so the first full
-match is the least row and the TPU's revisited output block (a running
-minimum across sequential grid steps) has no counterpart.  A query with the
-padding owner -1 returns -1 without scanning.  Source:
-``csrc/hash_match.cu``.
+What bounds it on the H100, and the design: memory, and at the executor's
+sizes the latency of getting the loads in flight.  A query needs its
+4-byte owner and 4-byte answer, and its 32 lane bytes only when some table
+row (tens to a few hundred) has its owner -- in the dense layout almost
+none does.  So each query reads its owner first and loads its lanes only
+if the owner occurs among the table's owners, which a persistent grid of
+blocks holds in shared memory (staged once per block; a table above the
+in-shared capacity is walked in chunks), one query per thread.  Rows are
+scanned in ascending order, so the first full match is the least row and
+the TPU's revisited output block (a running minimum across sequential grid
+steps) has no counterpart.  Source: ``csrc/hash_match.cu``.
 """
 
 from __future__ import annotations

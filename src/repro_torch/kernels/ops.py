@@ -4,11 +4,12 @@ A CPU tensor goes to the plain PyTorch version (``ref.py``), a CUDA tensor
 to the hand-written CUDA kernel; anything else raises.  There is no
 fallback from one to the other.
 
-The padding contract of the JAX package's wrappers holds without padding:
-the CUDA kernels mask their ragged edges themselves, a query owner of -1
-never matches (the reference's padded queries), table rows carry owners
->= 0 or the padding owner -9, and an assertion row or window slot with op
--1 evaluates to 0.
+The JAX package's wrappers pad their inputs to block multiples; here
+nothing is padded and the results are the same: the CUDA kernels mask
+their ragged edges themselves, ``hash_match`` matches equal owners
+whatever their value (-1 included; the reference's padded table rows carry
+owner -9 and are never seen here), and an assertion row or window slot
+with op -1 evaluates to 0.
 """
 
 from __future__ import annotations

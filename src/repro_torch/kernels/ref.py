@@ -23,14 +23,14 @@ _U32 = 0xFFFFFFFF
 
 def hash_match_ref(
     q_lanes: torch.Tensor,  # (N, 8) int32 view of uint32 lanes
-    q_owner: torch.Tensor,  # (N,)   int32, -1 = padding (never matches)
+    q_owner: torch.Tensor,  # (N,)   int32
     t_lanes: torch.Tensor,  # (M, 8) int32 view of uint32 lanes
-    t_owner: torch.Tensor,  # (M,)   int32, -9 = padding
+    t_owner: torch.Tensor,  # (M,)   int32
 ) -> torch.Tensor:
     """(N,) int32: minimal table row whose 8 lanes and owner match, else -1.
 
-    A query with owner -1 (the padding owner) matches nothing; table owners
-    are >= 0 or the -9 padding owner, so this equals the jnp reference.
+    Every owner matches an equal owner, -1 included, as in the jnp
+    reference.
     """
     n, m = q_lanes.shape[0], t_lanes.shape[0]
     if m == 0:
@@ -38,7 +38,6 @@ def hash_match_ref(
     matched = q_owner[:, None] == t_owner[None, :]  # (N, M)
     for lane in range(8):  # eight rank-2 compares, no (N, M, 8) intermediate
         matched &= q_lanes[:, lane, None] == t_lanes[None, :, lane]
-    matched &= (q_owner != -1)[:, None]
     rows = torch.arange(m, dtype=torch.int32, device=q_lanes.device)
     best = torch.where(matched, rows[None, :], _BIG).min(dim=1).values
     return torch.where(best >= _BIG, -1, best)

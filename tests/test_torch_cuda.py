@@ -44,17 +44,40 @@ def _i32(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-@pytest.mark.parametrize("n,m", [(1, 1), (1000, 300), (70_000, 600)])
+# N around a block's 256 queries (one a thread), M around the 1024 rows
+# the kernel holds in shared memory
+@pytest.mark.parametrize("n,m", [(1, 1), (1000, 300), (70_000, 600), (1023, 1024),
+                                 (1025, 1025), (4097, 3000)])
 def test_hash_match_equals_plain(cuda, n, m):
     rng = np.random.default_rng(n + m)
     q = _i32(_POOL[rng.integers(0, len(_POOL), n)], cuda)
     t = _i32(_POOL[rng.integers(0, len(_POOL), m)], cuda)
     qo = _i32(rng.integers(-1, 4, n).astype(np.int32), cuda)
-    to = _i32(np.where(rng.random(m) < 0.1, -9, rng.integers(0, 4, m)).astype(np.int32), cuda)
+    # table owners -1 (matched by -1 queries), -9 and 0..3
+    to = _i32(rng.choice([-1, -9, 0, 1, 2, 3], m).astype(np.int32), cuda)
     before = hm_mod.launches
     got = hm_mod.hash_match_cuda(q, qo, t, to)
     assert hm_mod.launches == before + 1
     assert torch.equal(got, ref.hash_match_ref(q, qo, t, to))
+
+
+@pytest.mark.parametrize("m", [3, 20, 1030, 2100])
+def test_hash_match_duplicate_rows_give_least_row(cuda, m):
+    """Copies of each query's lanes at several rows, under owners that
+    differ between copies, some beyond a 1024-row staging chunk: the answer
+    is the least row whose lanes and owner both match."""
+    rng = np.random.default_rng(m)
+    q = _POOL[rng.integers(0, len(_POOL), 8)]
+    t = _POOL[rng.integers(0, len(_POOL), m)]
+    qo = np.array([-1, 0, 1, 2, -1, 0, 1, 3], dtype=np.int32)
+    to = rng.choice([-1, -9, 0, 1], m).astype(np.int32)
+    for j in range(3 * len(q)):
+        t[rng.integers(0, m)] = q[j % len(q)]
+    t[m - 1], to[m - 1] = q[7], 3  # a match only in the last row
+    args = [_i32(a, cuda) for a in (q, qo, t, to)]
+    got = hm_mod.hash_match_cuda(*args)
+    assert torch.equal(got, ref.hash_match_ref(*args))
+    assert int(got[7]) == m - 1
 
 
 @pytest.mark.parametrize("n,w", [(1, 1), (5000, 6), (70_000, 8)])
@@ -86,7 +109,9 @@ def test_assertion_eval_window_equals_plain(cuda, n, w):
     assert torch.equal(got, ref.assertion_eval_window_ref(nd, wd))
 
 
-@pytest.mark.parametrize("n,a", [(1, 1), (5000, 29), (70_000, 68)])
+# A around the kernel's 128 staged rows and N * A with unaligned 16-byte ends
+@pytest.mark.parametrize("n,a", [(1, 1), (5000, 29), (70_000, 68), (257, 15), (1001, 16),
+                                 (3, 17), (4099, 26), (513, 129), (33, 4099)])
 def test_assertion_eval_equals_plain(cuda, n, a):
     rng = np.random.default_rng(n * 11 + a)
     nodes = {

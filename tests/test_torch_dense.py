@@ -255,3 +255,46 @@ def test_dense_random_schemas(seed):
         checked += 1
         docs = [_rand_doc(rng, 3) for _ in range(rng.randint(1, 8))]
         _assert_dense_same(tape, docs, max_depth=8, enc_depth=8)
+
+
+_U32_COLS = ("str_hash", "str_prefix", "u0", "u1", "hash")
+
+
+def _numpy_cols(cols: dict) -> dict:
+    """CPU tensors -> numpy columns; int32 views of uint32 words go back
+    to uint32."""
+    out = {}
+    for k, v in cols.items():
+        a = v.numpy()
+        out[k] = a.view(np.uint32) if k in _U32_COLS else a
+    return out
+
+
+@pytest.mark.parametrize("use_pallas", _MODES)
+def test_dense_admission_kernel_calls_equal_jax(use_pallas):
+    """Every kernel call of one dense registry admission of the gateway mix
+    (one hash_match per depth iteration and link group, one assertion_eval
+    per group: the calls chip_smoke.py holds against the plain versions on
+    the card) against the JAX op on the same inputs.  All but the current
+    depth's nodes query with owner -1."""
+    smoke = _load_chip_smoke()
+    docs, endpoints = smoke.mixed_stream(64, random.Random(4))
+    ctrl = smoke.admission_controller("dense", device="cpu")
+    calls = smoke.capture_kernel_inputs(lambda: ctrl.admit_ex(docs, endpoints))
+    n_groups = len({ctrl.registry.group_of(e).label for e in set(endpoints)})
+    assert len(calls["hash_match"]) == n_groups * ctrl.registry.max_depth
+    assert len(calls["assertion_eval"]) == n_groups
+    for q_lanes, q_owner, t_lanes, t_owner in calls["hash_match"]:
+        assert (q_owner.numpy() == -1).any()
+        want = jops.hash_match(
+            q_lanes.numpy().view(np.uint32), q_owner.numpy(),
+            t_lanes.numpy().view(np.uint32), t_owner.numpy(),
+            use_pallas=use_pallas, block_n=1024, block_m=128,
+        )
+        got = tops.hash_match(q_lanes, q_owner, t_lanes, t_owner)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for node_cols, asrt_cols in calls["assertion_eval"]:
+        want = jops.assertion_eval(_jax(_numpy_cols(node_cols)), _jax(_numpy_cols(asrt_cols)),
+                                   use_pallas=use_pallas)
+        got = tops.assertion_eval(node_cols, asrt_cols)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

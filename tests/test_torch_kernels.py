@@ -85,7 +85,9 @@ def test_hash_match_padding_owner_never_matches():
     lanes = torch.from_numpy(_POOL[:1].view(np.int32).copy())
     minus1 = torch.tensor([-1], dtype=torch.int32)
     assert tops.hash_match(lanes, minus1, lanes, torch.tensor([-9], dtype=torch.int32)) == -1
-    assert tops.hash_match(lanes, minus1, lanes, minus1) == -1
+    # owner -1 is an owner like any other: a -1 query hits a -1 row, as in
+    # the JAX op (only the wrapper's -9 table padding never matches)
+    assert tops.hash_match(lanes, minus1, lanes, minus1) == 0
 
 
 def test_hash_match_first_match_wins():
@@ -94,6 +96,26 @@ def test_hash_match_first_match_wins():
         lanes[:1], torch.zeros(1, dtype=torch.int32), lanes, torch.zeros(3, dtype=torch.int32)
     )
     assert int(got[0]) == 0
+
+
+@pytest.mark.parametrize("use_pallas", _MODES)
+@pytest.mark.parametrize("n,m", [(1, 1), (9, 5), (300, 130), (257, 1100)])
+def test_hash_match_owner_minus_one_rows(n, m, use_pallas):
+    """Tables holding owner -1 rows beside -9 rows, queried by -1 owners
+    whose lanes hit them; m = 1100 exceeds both the Pallas tile (128 rows)
+    and the CUDA kernel's in-shared capacity (1024 rows)."""
+    rng = np.random.default_rng(n * 7 + m)
+    q, q_owner, t, t_owner = _hash_inputs(rng, n, m, q_owners=(-1, 3), t_owners=(-1, 3))
+    t_owner[rng.random(m) < 0.2] = -9
+    q_owner[0] = -1
+    # plant queries (query 0, owner -1, among them) at distinct rows that
+    # carry their owner, some late in the table
+    planted = rng.permutation(m)[: max(1, min(n, m) // 2)]
+    t[planted] = q[: len(planted)]
+    t_owner[planted] = q_owner[: len(planted)]
+    _check_hash(q, q_owner, t, t_owner, use_pallas, block_n=128, block_m=128)
+    got = tops.hash_match(*_torch({"q": q, "qo": q_owner, "t": t, "to": t_owner}).values())
+    assert 0 <= int(got[0]) <= int(planted[0])
 
 
 # ---------------------------------------------------------------------------
