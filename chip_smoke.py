@@ -13,7 +13,10 @@ Phases, each printed on its own lines:
    it, with CUDA-event times of device work only, each kernel's own
    duration under the profiler, what both timers read for an empty kernel,
    the plain version's time and the bound (``hash_match`` also at the dense
-   admission's largest call);
+   admission's largest call); the window kernel reads each node's window
+   from the tape, with the rows staged in shared memory and, on the same
+   tape padded past the staging capacity, read in place, and beside it
+   stands the time of the (N, W[, 8]) operand gathers it replaced;
 4. main path: batched CSR validation of the five-endpoint gateway mix
    (B=4096 documents, max_nodes=64, linked tape) through
    ``BatchValidator.validate_ex``: docs/s, launch and encode times, launch
@@ -32,16 +35,19 @@ Phases, each printed on its own lines:
    device-busy share of one profiled call; the verdicts are equal between
    the layouts, to a ``device="cpu"`` registry and, where decided on the
    batched path, to the sequential ``Validator``.  Every kernel call of one
-   admission is held against its plain version: in the dense layout the 48
-   ``hash_match`` calls (16 depth iterations x 3 groups) and the 3
-   ``assertion_eval`` calls, each kernel timed at its largest call.
+   admission is held against its plain version: in the csr layout the 3
+   ``hash_match`` and 3 ``assertion_eval_window`` calls, in the dense
+   layout the 48 ``hash_match`` calls (16 depth iterations x 3 groups) and
+   the 3 ``assertion_eval`` calls; the window kernel, ``hash_match`` (dense)
+   and ``assertion_eval`` are timed at their largest call.
 
 Any mismatch or exception exits non-zero.  The last lines are the kernels
 JSON line (``launches`` counts the path each kernel serves: the CSR main
 path for the first two, the dense admission for ``assertion_eval``;
 ``launches_by_path`` has every path's count; ``hash_match``'s ``dense``
-holds its time, bound and launches in the dense admission), the card's name and power
-limit, and
+holds its time, bound and launches in the dense admission,
+``assertion_eval_window``'s ``admission`` the same in the csr admission),
+the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device: without one, or
 without the rest of the repository beside it, it exits non-zero and prints
 no result.
@@ -52,6 +58,7 @@ from __future__ import annotations
 import collections
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -332,12 +339,58 @@ def _to_cuda(cols: dict, floats=("num", "f0")) -> Dict[str, torch.Tensor]:
     return out
 
 
+def window_tape_case(rng: np.random.Generator, pool: np.ndarray, n: int, n_loc: int, a: int,
+                     w: int):
+    """(node columns, loc, tape columns) on the card for the tape-form
+    window kernel: A random rows (every op code and op -1, half copying some
+    node's prefix word and string hash), L windows of up to W rows (a
+    quarter ending at row A-1, the last one overrunning it), and node
+    locations drawn from -1..-4 and 0..L-1."""
+    nodes = _node_cols(rng, pool, n, ntype=rng.integers(-1, 8, n))
+    src = rng.integers(0, n, a)
+    same = rng.random(a) < 0.5
+    tape = {
+        "op": rng.integers(-1, 19, a),
+        "f0": rng.choice([0.0, 0.01, 0.5, 2.0, -3.0], a),
+        "i0": rng.integers(-3, 40, a),
+        "i1": rng.integers(0, 2, a),
+        "u0": np.where(same, nodes["str_prefix"][src, 0], rng.integers(
+            0, 2**32, a, dtype=np.uint64).astype(np.uint32)).astype(np.uint32),
+        "u1": rng.integers(0, 2**32, a, dtype=np.uint64).astype(np.uint32),
+        "hash": np.where(same[:, None], nodes["str_hash"][src],
+                         pool[rng.integers(0, len(pool), a)]),
+    }
+    length = np.minimum(rng.integers(0, w + 1, n_loc), a)
+    start = rng.integers(0, a - length + 1)
+    start[: n_loc // 4] = a - length[: n_loc // 4]
+    start[-1], length[-1] = a - 1, min(w, 3)
+    tape["start"], tape["len"] = start, length
+    loc = rng.choice(np.r_[[-1, -2, -3, -4], np.arange(n_loc)], n)
+    return _to_cuda(nodes), _to_cuda({"loc": loc})["loc"], _to_cuda(tape)
+
+
+def pad_tape(tape: Dict[str, torch.Tensor], rows: int) -> Dict[str, torch.Tensor]:
+    """The tape with ``rows`` op -1 rows appended: no window reads them."""
+    out = {}
+    for k, v in tape.items():
+        if k in ("start", "len"):
+            out[k] = v
+        else:
+            pad = torch.full((rows,) + tuple(v.shape[1:]), -1 if k == "op" else 0,
+                             dtype=v.dtype, device=v.device)
+            out[k] = torch.cat([v, pad])
+    return out
+
+
 def adversarial_cases() -> int:
     """Small edge cases for the three kernels; returns the number checked."""
     from repro_torch.core.tape import AOP
     from repro_torch.kernels import ref
     from repro_torch.kernels.assertion_eval import assertion_eval_cuda
-    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_cuda
+    from repro_torch.kernels.assertion_eval_window import (
+        assertion_eval_window_cuda,
+        assertion_eval_window_tape_cuda,
+    )
     from repro_torch.kernels.hash_match import hash_match_cuda
 
     rng = np.random.default_rng(SEED)
@@ -401,7 +454,7 @@ def adversarial_cases() -> int:
                      assertion_eval_window_cuda(nd, wd), ref.assertion_eval_window_ref(nd, wd))
 
     all_ops = list(range(-1, 19))
-    for n, w in [(1, 1), (37, 3), (1000, 7), (4099, 8)]:
+    for n, w in [(1, 1), (37, 3), (1000, 7), (4099, 8), (300, 70)]:
         case(n, w, all_ops)
         count += 1
     # NUM_MULTIPLE at the tolerance edges: num = (k + eps) * f0
@@ -419,6 +472,27 @@ def adversarial_cases() -> int:
     case(n, w, [AOP.OBJ_HAS_SLOT, AOP.TYPE_MASK], i0=rng.integers(-40, 80, (n, w)),
          ntype=rng.integers(-2, 40, n))
     count += 1
+
+    # assertion_eval_window on the tape itself (the executor's form), both
+    # ways the kernel reads rows: staged in shared memory (A <= 512) and in
+    # place.  Locations -1..-4 (no window), windows of length 0, windows
+    # ending at row A-1 and one overrunning it (clamped), W = 1, 6, 8, 33 and
+    # 70 (two passes of 64 slots), N not a multiple of a block's 256 nodes;
+    # each tape also padded with op -1 rows past 512, which moves it to the
+    # in-place path (only the overrunning window then reads other rows)
+    for n, n_loc, a, w in [(1, 1, 1, 1), (257, 5, 1, 6), (4099, 27, 68, 6),
+                           (1000, 60, 511, 8), (1001, 60, 512, 8), (999, 60, 513, 33),
+                           (255, 9, 100, 70), (70_001, 200, 50_000, 6), (300, 40, 3000, 70)]:
+        nd, loc, tape = window_tape_case(rng, pool, n, n_loc, a, w)
+        want = ref.assertion_eval_window_tape_ref(loc, nd, tape, w)
+        _check_equal(f"assertion_eval_window (tape) n={n} L={n_loc} A={a} w={w}",
+                     assertion_eval_window_tape_cuda(loc, nd, tape, w), want)
+        if a <= 512:
+            padded = pad_tape(tape, 600)
+            _check_equal(f"assertion_eval_window (tape padded past 512 rows) n={n} A={a} w={w}",
+                         assertion_eval_window_tape_cuda(loc, nd, padded, w),
+                         ref.assertion_eval_window_tape_ref(loc, nd, padded, w))
+        count += 1 + (a <= 512)
 
     # assertion_eval (dense): N and A around the 256-node tile and the
     # 128-row staging capacity, N * A leaving unaligned 16-byte ends, every
@@ -469,7 +543,12 @@ def adversarial_cases() -> int:
     return count
 
 
-KERNELS = ("hash_match", "assertion_eval_window", "assertion_eval")
+# each kernel's entry point in kernels/ops.py on the executor's paths, and
+# the position of its node columns among the entry's arguments
+ENTRIES = {"hash_match": ("hash_match", None),
+           "assertion_eval_window": ("assertion_eval_window_tape", 1),
+           "assertion_eval": ("assertion_eval", 0)}
+KERNELS = tuple(ENTRIES)
 
 
 def capture_kernel_inputs(run: Callable[[], Any]) -> Dict[str, List[tuple]]:
@@ -477,23 +556,27 @@ def capture_kernel_inputs(run: Callable[[], Any]) -> Dict[str, List[tuple]]:
     from repro_torch.kernels import ops
 
     captured: Dict[str, List[tuple]] = {name: [] for name in KERNELS}
-    originals = {name: getattr(ops, name) for name in KERNELS}
+    originals = {name: getattr(ops, entry) for name, (entry, _) in ENTRIES.items()}
 
     def recorder(name):
+        node_arg = ENTRIES[name][1]
+
         def record(*args):
-            if name != "hash_match":
-                args = (ops._with_acquired(args[0]), args[1])
+            if node_arg is not None:
+                args = list(args)
+                args[node_arg] = ops._with_acquired(args[node_arg])
+                args = tuple(args)
             captured[name].append(args)
             return originals[name](*args)
         return record
 
-    for name in KERNELS:
-        setattr(ops, name, recorder(name))
+    for name, (entry, _) in ENTRIES.items():
+        setattr(ops, entry, recorder(name))
     try:
         run()
     finally:
-        for name, fn in originals.items():
-            setattr(ops, name, fn)
+        for name, (entry, _) in ENTRIES.items():
+            setattr(ops, entry, originals[name])
     return captured
 
 
@@ -515,6 +598,25 @@ def zero_launch_counts() -> None:
     from repro_torch.kernels import assertion_eval, assertion_eval_window, hash_match
 
     hash_match.launches = assertion_eval_window.launches = assertion_eval.launches = 0
+
+
+def column_readers() -> Tuple[Tuple[int, set], ...]:
+    """(bytes a node, the ops that read the column), as both assertion
+    kernels load them (``load_node`` in csrc/eval_row.cuh): type, is_int,
+    num, size, acquired, prefix, hash."""
+    from repro_torch.core.tape import AOP
+
+    return (
+        (4, set(range(19))),
+        (4, {AOP.TYPE_MASK}),
+        (4, {AOP.NUM_GE, AOP.NUM_GT, AOP.NUM_LE, AOP.NUM_LT, AOP.NUM_MULTIPLE,
+             AOP.CONST_BOOL, AOP.CONST_NUM}),
+        (4, {AOP.STR_MINLEN, AOP.STR_MAXLEN, AOP.ARR_MINLEN, AOP.ARR_MAXLEN,
+             AOP.OBJ_MINPROPS, AOP.OBJ_MAXPROPS, AOP.STR_PREFIX}),
+        (4, {AOP.OBJ_HAS_SLOT}),
+        (8, {AOP.STR_PREFIX}),
+        (32, {AOP.STR_EQ, AOP.STR_EQ_PRE}),
+    )
 
 
 def _hash_match_work(args, got) -> Tuple[int, int]:
@@ -578,52 +680,89 @@ def hash_match_at_dense(calls) -> Dict[str, Any]:
                                 "bound_by", "max_abs_err", "bytes", "ops")}
 
 
-def assertion_eval_window_at_main(args) -> Dict[str, Any]:
+def _window_work(args) -> Tuple[int, int]:
+    """(bytes, operations) that the tape-form window kernel needs on these
+    inputs: 4 B of loc a node, each location's start and length (8 B) and
+    each tape row's 56 B once, the node columns that each node's live
+    window ops read (as csrc/assertion_eval_window.cu loads them), one
+    output byte a slot; about ten operations a live slot."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_cuda
 
-    node_cols, w_cols = args
-    n, w = w_cols["op"].shape
-    got = assertion_eval_window_cuda(node_cols, w_cols)
-    want = ref.assertion_eval_window_ref(node_cols, w_cols)
-    err = _check_equal("assertion_eval_window at the main path's inputs", got, want)
-    # bytes this run's data needs: every op word and output byte; the other
-    # 52 operand bytes of each live slot (op >= 0); 60 bytes of each node
-    # with a live slot
-    live = w_cols["op"] >= 0
-    n_live = int(live.sum().item())
-    n_nodes = int(live.any(dim=1).sum().item())
-    nbytes = 4 * n * w + 52 * n_live + 60 * n_nodes + n * w
-    # operations: about ten per live slot (the selected op's compares)
-    nops = 10 * n_live
-    times = kernel_times(lambda: assertion_eval_window_cuda(node_cols, w_cols),
-                         lambda: ref.assertion_eval_window_ref(node_cols, w_cols),
+    loc, node_cols, tape_cols, w = args
+    n, n_loc, a = loc.shape[0], tape_cols["start"].shape[0], tape_cols["op"].shape[0]
+    ops = ref.gather_windows(loc, tape_cols, w)["op"]  # -1 outside live windows
+    live = (ops >= 0) & (ops <= 18)
+    node_bytes = 0
+    for width, readers in column_readers():
+        reads = torch.isin(ops, torch.tensor(sorted(readers), device=ops.device)) & live
+        node_bytes += width * int(reads.any(dim=1).sum().item())
+    nbytes = 4 * n + 8 * n_loc + 56 * a + node_bytes + n * w
+    return nbytes, 10 * int(live.sum().item())
+
+
+def assertion_eval_window_at_main(args) -> Dict[str, Any]:
+    """The tape-form window kernel at one main-path launch's inputs: held
+    against its plain version with its rows staged (A <= 512) and read in
+    place (the same tape padded past 512 rows), both timed, and the parent
+    design's stage beside it: the (N, W[, 8]) operand gathers that the
+    kernel replaced."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_tape_cuda
+
+    loc, node_cols, tape_cols, w = args
+    n, a = loc.shape[0], tape_cols["op"].shape[0]
+    want = ref.assertion_eval_window_tape_ref(*args)
+    err = _check_equal("assertion_eval_window at the main path's inputs",
+                       assertion_eval_window_tape_cuda(*args), want)
+    padded = pad_tape(tape_cols, 600)
+    _check_equal("assertion_eval_window at the main path's inputs, rows read in place",
+                 assertion_eval_window_tape_cuda(loc, node_cols, padded, w), want)
+    nbytes, nops = _window_work(args)
+    times = kernel_times(lambda: assertion_eval_window_tape_cuda(*args),
+                         lambda: ref.assertion_eval_window_tape_ref(*args),
                          "assertion_eval_window_kernel")
-    return _kernel_row("assertion_eval_window", "src/repro/kernels/assertion_eval.py:350",
-                       "src/repro_torch/csrc/assertion_eval_window.cu", err, times,
-                       nbytes, nops, f"N={n} W={w}")
+    row = _kernel_row("assertion_eval_window", "src/repro/kernels/assertion_eval.py:350",
+                      "src/repro_torch/csrc/assertion_eval_window.cu", err, times,
+                      nbytes, nops, f"N={n} W={w} A={a} L={tape_cols['start'].shape[0]}")
+    row["in_place_ms"] = device_ms(
+        lambda: assertion_eval_window_tape_cuda(loc, node_cols, padded, w))
+    row["gather_ms"] = device_ms(lambda: ref.gather_windows(loc, tape_cols, w))
+    print(f"[kernels] assertion_eval_window with the tape's {a + 600} rows read in place: "
+          f"{row['in_place_ms']:.4f} ms; the gathers the kernel replaced "
+          f"(ref.gather_windows): {row['gather_ms']:.4f} ms")
+    return row
+
+
+def assertion_eval_window_at_admission(calls) -> Dict[str, Any]:
+    """Every window call of one csr registry admission against the plain
+    version; the largest call (by N x W) is timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_tape_cuda
+
+    err = 0.0
+    for args in calls:
+        err = max(err, _check_equal("assertion_eval_window in csr admission",
+                                    assertion_eval_window_tape_cuda(*args),
+                                    ref.assertion_eval_window_tape_ref(*args)))
+    args = max(calls, key=lambda c: c[0].shape[0] * c[3])
+    nbytes, nops = _window_work(args)
+    times = kernel_times(lambda: assertion_eval_window_tape_cuda(*args),
+                         lambda: ref.assertion_eval_window_tape_ref(*args),
+                         "assertion_eval_window_kernel")
+    row = _kernel_row("assertion_eval_window", "src/repro/kernels/assertion_eval.py:350",
+                      "src/repro_torch/csrc/assertion_eval_window.cu", err, times, nbytes, nops,
+                      f"N={args[0].shape[0]} W={args[3]} A={args[2]['op'].shape[0]}, "
+                      f"{len(calls)} calls checked", where="the csr admission's largest call")
+    return {k: row[k] for k in ("shape", "ms", "plain_ms", "profiler_ms", "bound_ms",
+                                "bound_by", "max_abs_err", "bytes", "ops")}
 
 
 def assertion_eval_at_main(calls) -> Dict[str, Any]:
     """Every dense call of one registry admission against the plain version;
     the largest call (by N x A) is timed."""
-    from repro_torch.core.tape import AOP
     from repro_torch.kernels import ref
     from repro_torch.kernels.assertion_eval import assertion_eval_cuda
 
-    # (bytes a node, the ops that read the column), as csrc/assertion_eval.cu
-    # loads them: type, is_int, num, size, acquired, prefix, hash
-    column_readers = (
-        (4, set(range(19))),
-        (4, {AOP.TYPE_MASK}),
-        (4, {AOP.NUM_GE, AOP.NUM_GT, AOP.NUM_LE, AOP.NUM_LT, AOP.NUM_MULTIPLE,
-             AOP.CONST_BOOL, AOP.CONST_NUM}),
-        (4, {AOP.STR_MINLEN, AOP.STR_MAXLEN, AOP.ARR_MINLEN, AOP.ARR_MAXLEN,
-             AOP.OBJ_MINPROPS, AOP.OBJ_MAXPROPS, AOP.STR_PREFIX}),
-        (4, {AOP.OBJ_HAS_SLOT}),
-        (8, {AOP.STR_PREFIX}),
-        (32, {AOP.STR_EQ, AOP.STR_EQ_PRE}),
-    )
     err = 0.0
     for node_cols, asrt_cols in calls:
         err = max(err, _check_equal(
@@ -635,7 +774,7 @@ def assertion_eval_at_main(calls) -> Dict[str, Any]:
     # bytes: each output byte written once, each row's 56 operand bytes and
     # each node column that some row's op reads, once
     ops = set(asrt_cols["op"].tolist())
-    node_bytes = sum(width for width, readers in column_readers if ops & readers)
+    node_bytes = sum(width for width, readers in column_readers() if ops & readers)
     nbytes = n * a + node_bytes * n + 56 * a
     # operations: about ten per element of a live row (op >= 0)
     nops = 10 * n * int((asrt_cols["op"] >= 0).sum().item())
@@ -794,7 +933,7 @@ def profile(run: Callable[[], Any], tag: str) -> Dict[str, Any]:
     # the port's own kernels, by their CUDA function names
     ours = {}
     for name in KERNELS:
-        hits = [r for r in rows if f"{name}_kernel(" in r[2]]
+        hits = [r for r in rows if re.search(rf"\b{name}_kernel\b", r[2])]
         ours[name] = {"ms": sum(r[0] for r in hits), "calls": sum(r[1] for r in hits)}
     if busy_ms > 0:
         print(f"[{tag}] the port's kernels: " + ", ".join(
@@ -826,20 +965,17 @@ def registry_phase(layout: str, docs, endpoints, oracle) -> Dict[str, Any]:
     """Registry admission of the gateway mix in one executor layout; returns
     (besides the numbers) every kernel input of its first call."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_cuda
     from repro_torch.kernels.hash_match import hash_match_cuda
 
     ctrl = admission_controller(layout)  # the default device: cuda
     reg = ctrl.registry
-    # first call per batch shape (allocator growth), with every kernel call
-    # held against its plain version (the dense kernel's in assertion_eval_at_main)
+    # first call per batch shape (allocator growth), with every hash_match
+    # call held against its plain version (the assertion kernels' calls in
+    # assertion_eval_window_at_admission and assertion_eval_at_main)
     captured = capture_kernel_inputs(lambda: ctrl.admit_ex(docs, endpoints))
     for args in captured["hash_match"]:
         _check_equal(f"hash_match in {layout} admission", hash_match_cuda(*args),
                      ref.hash_match_ref(*args))
-    for args in captured["assertion_eval_window"]:
-        _check_equal(f"assertion_eval_window in {layout} admission",
-                     assertion_eval_window_cuda(*args), ref.assertion_eval_window_ref(*args))
     torch.cuda.synchronize()
 
     before = ctrl.stats.snapshot()
@@ -959,8 +1095,10 @@ def run() -> int:
     if registry["csr"].pop("verdicts") != registry["dense"].pop("verdicts"):
         raise AssertionError("registry admission: the csr and dense layouts disagree")
     print("[registry] the csr and dense layouts give equal verdicts")
-    registry["csr"].pop("captured")
+    csr_calls = registry["csr"].pop("captured")
     dense_calls = registry["dense"].pop("captured")
+    kernels[1]["admission"] = assertion_eval_window_at_admission(
+        csr_calls["assertion_eval_window"])
     kernels[0]["dense"] = hash_match_at_dense(dense_calls["hash_match"])
     kernels.append(assertion_eval_at_main(dense_calls["assertion_eval"]))
     for row in kernels:
@@ -970,6 +1108,7 @@ def run() -> int:
         }
     kernels[-1]["launches"] = registry["dense"]["launches"]["assertion_eval"]
     kernels[0]["dense"]["launches"] = registry["dense"]["launches"]["hash_match"]
+    kernels[1]["admission"]["launches"] = registry["csr"]["launches"]["assertion_eval_window"]
 
     print(json.dumps({"main_path": {
         "card": smi, "batch": BATCH, "max_nodes": MAX_NODES,

@@ -13,10 +13,10 @@ The pipeline is the reference's:
    each node's location from its parent's over the K candidates.
 2. **Required tracking** -- matched children add their required-slot bit
    into the parent's acquired mask (one ``index_add_``).
-3. **Assertion evaluation** -- each node gathers its location's CSR window
-   (<= Â rows) and the ``assertion_eval_window`` kernel computes the
-   (nodes x Â) pass matrix; enum OR-groups reduce with a segmented suffix
-   OR over the window.
+3. **Assertion evaluation** -- the ``assertion_eval_window`` kernel reads
+   each node's location's CSR window (<= Â rows) from the tape and
+   computes the (nodes x Â) pass matrix; enum OR-groups reduce with a
+   segmented suffix OR over the window.
 3b. **Circuit reduce** (DESIGN.md §10) -- circuit leaves are read at one
    anchor node per (document, location) and reduced bottom-up.
 4. **Reduce** -- AND over nodes per document, plus the depth-budget and
@@ -635,16 +635,14 @@ def _assertions_csr(loc, node_cols, consts, *, n_window: int, n_circuits: int):
     slots = torch.arange(n_window, dtype=torch.int64, device=dev)[None, :]  # (1, W)
     w_rows = torch.clamp(w_start[:, None] + slots, 0, A - 1)  # (BN, W)
     w_valid = slots < w_len[:, None]  # (BN, W) == "applies"
-    w_cols = {
-        "op": torch.where(w_valid, consts["asrt_op"][w_rows], -1),
-        "f0": consts["asrt_f0"][w_rows],
-        "i0": consts["asrt_i0"][w_rows],
-        "i1": consts["asrt_i1"][w_rows],
-        "u0": consts["asrt_u0"][w_rows],
-        "u1": consts["asrt_u1"][w_rows],
-        "hash": consts["asrt_hash"][w_rows],
+    # the kernel reads each node's window from the tape itself, so the
+    # reference's (BN, W[, 8]) operand gathers have no counterpart here
+    window_tape = {
+        "start": consts["loc_asrt_start"],
+        "len": consts["loc_asrt_len"],
+        **{k: consts[f"asrt_{k}"] for k in ("op", "f0", "i0", "i1", "u0", "u1", "hash")},
     }
-    passes = kops.assertion_eval_window(node_cols, w_cols) != 0  # (BN, W)
+    passes = kops.assertion_eval_window_tape(loc, node_cols, window_tape, n_window) != 0
 
     gcode = torch.where(w_valid, consts["asrt_gcode"][w_rows], 0)
     grp = gcode & (_CIRC_FLAG - 1)

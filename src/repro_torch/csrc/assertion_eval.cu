@@ -45,53 +45,9 @@ constexpr int kThreads = kTile / kNodesPerThread;
 constexpr int kRowCap = 128;               // assertion rows staged per block
 constexpr int kNoOp = blaze::OBJ_HAS_SLOT + 1;  // sort key of an op outside 0..18
 
-// the node columns each op reads (type is read by every op)
-__host__ __device__ constexpr unsigned bit(int op) { return 1u << op; }
-constexpr unsigned kReadsIsInt = bit(blaze::TYPE_MASK);
-constexpr unsigned kReadsNum = bit(blaze::NUM_GE) | bit(blaze::NUM_GT) | bit(blaze::NUM_LE) |
-                               bit(blaze::NUM_LT) | bit(blaze::NUM_MULTIPLE) |
-                               bit(blaze::CONST_BOOL) | bit(blaze::CONST_NUM);
-constexpr unsigned kReadsSize = bit(blaze::STR_MINLEN) | bit(blaze::STR_MAXLEN) |
-                                bit(blaze::ARR_MINLEN) | bit(blaze::ARR_MAXLEN) |
-                                bit(blaze::OBJ_MINPROPS) | bit(blaze::OBJ_MAXPROPS) |
-                                bit(blaze::STR_PREFIX);
-constexpr unsigned kReadsAcq = bit(blaze::OBJ_HAS_SLOT);
-constexpr unsigned kReadsPrefix = bit(blaze::STR_PREFIX);
-constexpr unsigned kReadsHash = bit(blaze::STR_EQ) | bit(blaze::STR_EQ_PRE);
-
-// node operands held in registers
-struct RegNode {
-  int ntype, isint, size, acq;
-  float num;
-  int2 pfx;
-  int4 ha, hb;
-  __device__ int is_int() const { return isint; }
-  __device__ int acquired() const { return acq; }
-  __device__ int2 prefix() const { return pfx; }
-  __device__ void hash(int4& a, int4& b) const { a = ha; b = hb; }
-};
-
-// node i's columns that the staged ops read (`used`: a bit per op code);
-// the others, and every column of a thread without a node, stay 0
-__device__ __forceinline__ RegNode load_node(
-    const int* __restrict__ n_type, const int* __restrict__ n_isint,
-    const float* __restrict__ n_num, const int* __restrict__ n_size,
-    const int* __restrict__ n_acq, const int4* __restrict__ n_hash,
-    const int2* __restrict__ n_prefix, long long i, bool live, unsigned used) {
-  RegNode v{0, 0, 0, 0, 0.0f, make_int2(0, 0), make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
-  if (!live || !used) return v;
-  v.ntype = n_type[i];
-  if (used & kReadsIsInt) v.isint = n_isint[i];
-  if (used & kReadsNum) v.num = n_num[i];
-  if (used & kReadsSize) v.size = n_size[i];
-  if (used & kReadsAcq) v.acq = n_acq[i];
-  if (used & kReadsPrefix) v.pfx = n_prefix[i];
-  if (used & kReadsHash) {
-    v.ha = n_hash[2 * i];
-    v.hb = n_hash[2 * i + 1];
-  }
-  return v;
-}
+using blaze::load_node;
+using blaze::op_bit;
+using blaze::RegNode;
 
 // row operands staged in shared memory, at the row's place `q` in op order
 struct StagedRow {
@@ -160,7 +116,7 @@ __global__ void __launch_bounds__(kThreads) assertion_eval_kernel(
         const int op = a_op[a0 + r];
         const int key = op >= 0 && op <= blaze::OBJ_HAS_SLOT ? op : kNoOp;
         s_key[r] = key;
-        if (key != kNoOp) atomicOr(&s_used, bit(key));
+        if (key != kNoOp) atomicOr(&s_used, op_bit(key));
       }
       __syncthreads();
       used = s_used;

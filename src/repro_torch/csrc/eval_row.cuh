@@ -7,6 +7,7 @@
 // selects by op code; here `eval_op<OP>` is one op, `with_op` dispatches a
 // run-time op code to it once (for one element in the windowed kernel's
 // `eval_row`, for a run of rows with the same op in the dense kernel).
+// `load_node` loads the node columns a set of ops reads, for both kernels.
 //
 // Bit-exactness with the reference (jnp, float32):
 //  - NUM_MULTIPLE uses float32 constants (1e-6f), floorf(q + 0.5f) and a
@@ -162,6 +163,55 @@ __device__ __forceinline__ bool eval_row(int op, float f0, int i0, int ntype, fl
     pass = eval_op<decltype(tag)::value>(f0, i0, ntype, num, size, node, row);
   });
   return pass;
+}
+
+// The node columns each op reads, as a bit per op code (type is read by
+// every op): a kernel ORs op_bit() over the ops it will evaluate for a
+// node and loads only those columns.
+__host__ __device__ constexpr unsigned op_bit(int op) { return 1u << op; }
+constexpr unsigned kReadsIsInt = op_bit(TYPE_MASK);
+constexpr unsigned kReadsNum = op_bit(NUM_GE) | op_bit(NUM_GT) | op_bit(NUM_LE) |
+                               op_bit(NUM_LT) | op_bit(NUM_MULTIPLE) | op_bit(CONST_BOOL) |
+                               op_bit(CONST_NUM);
+constexpr unsigned kReadsSize = op_bit(STR_MINLEN) | op_bit(STR_MAXLEN) | op_bit(ARR_MINLEN) |
+                                op_bit(ARR_MAXLEN) | op_bit(OBJ_MINPROPS) |
+                                op_bit(OBJ_MAXPROPS) | op_bit(STR_PREFIX);
+constexpr unsigned kReadsAcq = op_bit(OBJ_HAS_SLOT);
+constexpr unsigned kReadsPrefix = op_bit(STR_PREFIX);
+constexpr unsigned kReadsHash = op_bit(STR_EQ) | op_bit(STR_EQ_PRE);
+
+// node operands held in registers
+struct RegNode {
+  int ntype, isint, size, acq;
+  float num;
+  int2 pfx;
+  int4 ha, hb;
+  __device__ int is_int() const { return isint; }
+  __device__ int acquired() const { return acq; }
+  __device__ int2 prefix() const { return pfx; }
+  __device__ void hash(int4& a, int4& b) const { a = ha; b = hb; }
+};
+
+// node i's columns that the ops in `used` read; the others, and every
+// column of a node that is not `live`, stay 0
+__device__ __forceinline__ RegNode load_node(
+    const int* __restrict__ n_type, const int* __restrict__ n_isint,
+    const float* __restrict__ n_num, const int* __restrict__ n_size,
+    const int* __restrict__ n_acq, const int4* __restrict__ n_hash,
+    const int2* __restrict__ n_prefix, long long i, bool live, unsigned used) {
+  RegNode v{0, 0, 0, 0, 0.0f, make_int2(0, 0), make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
+  if (!live || !used) return v;
+  v.ntype = n_type[i];
+  if (used & kReadsIsInt) v.isint = n_isint[i];
+  if (used & kReadsNum) v.num = n_num[i];
+  if (used & kReadsSize) v.size = n_size[i];
+  if (used & kReadsAcq) v.acq = n_acq[i];
+  if (used & kReadsPrefix) v.pfx = n_prefix[i];
+  if (used & kReadsHash) {
+    v.ha = n_hash[2 * i];
+    v.hb = n_hash[2 * i + 1];
+  }
+  return v;
 }
 
 }  // namespace blaze

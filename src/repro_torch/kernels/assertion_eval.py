@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from .assertion_eval_window import _NODE_COLS
+from .assertion_eval_window import _NODE_COLS, _ROW_COLS
 from .build import load
 from .hash_match import _check
 
@@ -34,16 +34,6 @@ __all__ = ["assertion_eval_cuda"]
 
 # kernel launches since import; chip_smoke.py zeroes it before the main path
 launches = 0
-
-_ROW_COLS = (
-    ("op", torch.int32, ()),
-    ("f0", torch.float32, ()),
-    ("i0", torch.int32, ()),
-    ("i1", torch.int32, ()),
-    ("u0", torch.int32, ()),
-    ("u1", torch.int32, ()),
-    ("hash", torch.int32, (8,)),
-)
 
 
 def assertion_eval_cuda(node_cols: dict, asrt_cols: dict) -> torch.Tensor:

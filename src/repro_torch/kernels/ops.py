@@ -18,10 +18,15 @@ import torch
 
 from . import ref as _ref
 from .assertion_eval import assertion_eval_cuda
-from .assertion_eval_window import assertion_eval_window_cuda
+from .assertion_eval_window import assertion_eval_window_cuda, assertion_eval_window_tape_cuda
 from .hash_match import hash_match_cuda
 
-__all__ = ["hash_match", "assertion_eval", "assertion_eval_window"]
+__all__ = [
+    "hash_match",
+    "assertion_eval",
+    "assertion_eval_window_tape",
+    "assertion_eval_window",
+]
 
 
 def _device_type(*tensors: torch.Tensor) -> str:
@@ -68,11 +73,31 @@ def assertion_eval(node_cols: dict, asrt_cols: dict) -> torch.Tensor:
     return assertion_eval_cuda(node_cols, asrt_cols)
 
 
+def assertion_eval_window_tape(
+    loc: torch.Tensor, node_cols: dict, tape_cols: dict, n_window: int
+) -> torch.Tensor:
+    """(N, W) int8 pass matrix of each node against its CSR window, read
+    from the tape (the executor's CSR path).
+
+    ``loc`` (N,) int32 is each node's location (< 0: no window);
+    ``tape_cols`` holds start/len of shape (L,), the location's first row
+    and row count, and op/f0/i0/i1/u0/u1 of shape (A,) and hash of shape
+    (A, 8).  Slot j of node i is its verdict on row start + j for j < len,
+    else 0.
+    """
+    node_cols = _with_acquired(node_cols)
+    if _device_type(loc, *node_cols.values(), *tape_cols.values()) == "cpu":
+        return _ref.assertion_eval_window_tape_ref(loc, node_cols, tape_cols, n_window)
+    return assertion_eval_window_tape_cuda(loc, node_cols, tape_cols, n_window)
+
+
 def assertion_eval_window(node_cols: dict, w_cols: dict) -> torch.Tensor:
-    """(N, W) int8 pass matrix over pre-gathered CSR windows.
+    """(N, W) int8 pass matrix over pre-gathered CSR windows (the JAX op's
+    form).
 
     ``w_cols`` holds op/f0/i0/i1/u0/u1 of shape (N, W) and hash of shape
-    (N, W, 8); masked slots must carry op -1.
+    (N, W, 8); masked slots must carry op -1.  On CUDA the windows go to the
+    tape kernel as a tape of N*W rows.
     """
     node_cols = _with_acquired(node_cols)
     if _device_type(*node_cols.values(), *w_cols.values()) == "cpu":

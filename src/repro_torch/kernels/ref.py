@@ -15,7 +15,13 @@ import torch
 from ..core.nodetypes import T_ARR, T_BOOL, T_NULL, T_NUM, T_OBJ, T_STR
 from ..core.tape import AOP
 
-__all__ = ["hash_match_ref", "assertion_eval_ref", "assertion_eval_window_ref"]
+__all__ = [
+    "hash_match_ref",
+    "assertion_eval_ref",
+    "assertion_eval_window_ref",
+    "gather_windows",
+    "assertion_eval_window_tape_ref",
+]
 
 _BIG = 2**30
 _U32 = 0xFFFFFFFF
@@ -201,3 +207,36 @@ def assertion_eval_window_ref(node_cols: dict, w_cols: dict) -> torch.Tensor:
         hash_eq,
     )
     return result.to(torch.int8)
+
+
+def gather_windows(loc: torch.Tensor, tape_cols: dict, n_window: int) -> dict:
+    """Each node's CSR window operands, gathered from the tape as the JAX
+    executor gathers them (``_assertions_csr``).
+
+    ``loc``: int32 (N,), a location below L, or < 0 for a node without one;
+    ``tape_cols``: start/len int32 (L,), each location's first row and row
+    count, and op/f0/i0/i1/u0/u1 (A,), hash (A, 8) as in
+    :func:`assertion_eval_ref`, A >= 1.  Returns the ``w_cols`` of
+    :func:`assertion_eval_window_ref`: slot j of node i holds row
+    clip(start + j, 0, A - 1) of the tape, with op -1 for j >= len and for
+    every slot of a node with loc < 0.
+    """
+    a = tape_cols["op"].shape[0]
+    tracked = loc >= 0
+    loc_safe = torch.where(tracked, loc, 0).long()
+    w_start = tape_cols["start"][loc_safe]
+    w_len = torch.where(tracked, tape_cols["len"][loc_safe], 0)
+    slots = torch.arange(n_window, dtype=torch.int64, device=loc.device)[None, :]
+    w_rows = torch.clamp(w_start[:, None] + slots, 0, a - 1)  # (N, W)
+    w_valid = slots < w_len[:, None]
+    w_cols = {k: tape_cols[k][w_rows] for k in ("op", "f0", "i0", "i1", "u0", "u1", "hash")}
+    w_cols["op"] = torch.where(w_valid, w_cols["op"], -1)
+    return w_cols
+
+
+def assertion_eval_window_tape_ref(
+    loc: torch.Tensor, node_cols: dict, tape_cols: dict, n_window: int
+) -> torch.Tensor:
+    """(N, W) int8 pass matrix of each node against its CSR window on the
+    tape: :func:`gather_windows`, then :func:`assertion_eval_window_ref`."""
+    return assertion_eval_window_ref(node_cols, gather_windows(loc, tape_cols, n_window))

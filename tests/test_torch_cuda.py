@@ -5,10 +5,13 @@ Skipped without a GPU.  On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held bit-equal to its plain PyTorch version on the same CUDA
-tensors, and the executor's CUDA run to its CPU run.
+tensors, and the executor's CUDA run to its CPU run.  The pre-gathered
+window wrapper runs the tape-form window kernel on a tape of N*W rows.
 """
 
+import importlib.util
 import random
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,6 +39,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _load_chip_smoke():
+    """chip_smoke.py as a module (its tape-window case generator); the
+    machine with the card has no JAX, so nothing here imports it."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_cuda_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _i32(a: np.ndarray, device) -> torch.Tensor:
@@ -107,6 +120,39 @@ def test_assertion_eval_window_equals_plain(cuda, n, w):
     got = aw_mod.assertion_eval_window_cuda(nd, wd)
     assert aw_mod.launches == before + 1
     assert torch.equal(got, ref.assertion_eval_window_ref(nd, wd))
+
+
+# the tape-form window kernel (the executor's): A around the 512 rows it
+# stages in shared memory and far above them, W up to two passes of 64
+# slots, N not a multiple of a block's 256 nodes; locations -1..-4, empty
+# windows, windows ending at row A-1 and one overrunning it
+@pytest.mark.parametrize("n,n_loc,a,w", [(1, 1, 1, 1), (4099, 27, 68, 6), (1000, 60, 511, 8),
+                                         (1001, 60, 512, 8), (999, 60, 513, 33),
+                                         (255, 9, 100, 70), (300, 40, 3000, 70),
+                                         (70_000, 200, 50_000, 6)])
+def test_assertion_eval_window_tape_equals_plain(cuda, n, n_loc, a, w):
+    smoke = _load_chip_smoke()
+    rng = np.random.default_rng(n * 13 + a + w)
+    nd, loc, tape = smoke.window_tape_case(rng, smoke._key_pool(), n, n_loc, a, w)
+    before = aw_mod.launches
+    got = aw_mod.assertion_eval_window_tape_cuda(loc, nd, tape, w)
+    assert aw_mod.launches == before + 1
+    assert torch.equal(got, ref.assertion_eval_window_tape_ref(loc, nd, tape, w))
+
+
+@pytest.mark.parametrize("a", [1, 68, 511, 512])
+def test_assertion_eval_window_staged_equals_in_place(cuda, a):
+    """The same windows with the tape's rows staged in shared memory and
+    read in place (the tape padded with op -1 rows past 512 rows): no
+    window overruns the tape, so both give the same matrix."""
+    smoke = _load_chip_smoke()
+    rng = np.random.default_rng(a)
+    nd, loc, tape = smoke.window_tape_case(rng, smoke._key_pool(), 5000, 30, a, 6)
+    tape["len"][-1] = 0  # the overrunning window
+    staged = aw_mod.assertion_eval_window_tape_cuda(loc, nd, tape, 6)
+    in_place = aw_mod.assertion_eval_window_tape_cuda(loc, nd, smoke.pad_tape(tape, 600), 6)
+    assert torch.equal(staged, in_place)
+    assert torch.equal(staged, ref.assertion_eval_window_tape_ref(loc, nd, tape, 6))
 
 
 # A around the kernel's 128 staged rows and N * A with unaligned 16-byte ends
