@@ -39,12 +39,28 @@ Phases, each printed on its own lines:
    ``hash_match`` and 3 ``assertion_eval_window`` calls, in the dense
    layout the 48 ``hash_match`` calls (16 depth iterations x 3 groups) and
    the 3 ``assertion_eval`` calls; the window kernel, ``hash_match`` (dense)
-   and ``assertion_eval`` are timed at their largest call.
+   and ``assertion_eval`` are timed at their largest call;
+8. serve: the gateway in front of the dense LM.  (a) ``ServeEngine`` with
+   granite-3-8b at its published widths and depth (bf16 weights drawn on
+   the card from a seeded generator, ``batch_slots=4``, ``max_len=512``,
+   the five gateway endpoints) admits one ``submit_batch`` of the first 128
+   requests of phase 7's mix, every ``hash_match`` and
+   ``assertion_eval_window`` call held against its plain version and the
+   ``SubmitResult``s against a CPU registry's, then takes 32 ``step()``s:
+   admission ms, each prefill's ms, the longest admitted prompt's prefill
+   alone by CUDA events, the median decode step, tokens/s, peak memory and
+   the step's byte bound; (b) at full width in float32 (TF32 off), a
+   prefill of a prompt's first L-1 tokens then ``decode_step`` of its last
+   equals the prefill of all L (max |dlogit| <= 1e-3 max |logit|, argmax
+   equal); (c) a reduced float32 engine serves the same four prompts on the
+   card and on the CPU from one set of CPU-made parameters: ids equal,
+   every LM call's logits within 1e-4 max |logit|.
 
-Any mismatch or exception exits non-zero.  The last lines are the kernels
-JSON line (``launches`` counts the path each kernel serves: the CSR main
+Any mismatch or exception exits non-zero.  The last lines are the serve
+JSON line, the kernels JSON line (``launches`` counts the path each kernel serves: the CSR main
 path for the first two, the dense admission for ``assertion_eval``;
-``launches_by_path`` has every path's count; ``hash_match``'s ``dense``
+``launches_by_path`` has every path's count, the serve burst's under
+``serve``; ``hash_match``'s ``dense``
 holds its time, bound and launches in the dense admission,
 ``assertion_eval_window``'s ``admission`` the same in the csr admission),
 the card's name and power limit, and
@@ -56,6 +72,8 @@ no result.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import gc
 import json
 import random
 import re
@@ -74,6 +92,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 BATCH = 4096
 MAX_NODES = 64
 TIMED_LAUNCHES = 10
@@ -82,6 +101,14 @@ ADMIT_COUNT_FIELDS = ("batch_validated", "undecided", "oversize", "unroll_overfl
                       "fallback_validated", "rejected_guard", "error_isolated",
                       "timed_out", "breaker_open")
 SEED = 0
+# phase 8: the dense LM behind admission, its burst and its tolerances
+SERVE_ARCH = "granite-3-8b"
+SERVE_BURST = 128
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 512
+SERVE_STEPS = 32
+CACHE_REL = 1e-3  # cache path against full path, float32 at full width
+CARD_CPU_REL = 1e-4  # card against CPU, reduced, float32
 
 # the gateway's endpoint mix (benchmarks/registry.py): completions dominate,
 # moderation is the tail; charge is the tagged-union endpoint with circuits
@@ -1029,6 +1056,278 @@ def registry_phase(layout: str, docs, endpoints, oracle) -> Dict[str, Any]:
             "verdicts": verdicts, "captured": captured}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serve admission in front of the dense LM
+# ---------------------------------------------------------------------------
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    out = []
+    for value in tree.values():
+        out += _leaves(value) if isinstance(value, dict) else [value]
+    return out
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+class _Timed:
+    """Wraps an LM call: host ms of each call, synchronised on both sides,
+    and its logits (first element of the result) kept on the host."""
+
+    def __init__(self, fn, device, keep_logits=False):
+        self.fn, self.device, self.keep = fn, device, keep_logits
+        self.ms: List[float] = []
+        self.logits: List[torch.Tensor] = []
+        self.cache_len: List[int] = []  # decode_step's index argument
+        self.finite = True
+
+    def __call__(self, *args, **kwargs):
+        if len(args) > 3:
+            self.cache_len.append(int(args[3]))
+        _sync(self.device)
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        _sync(self.device)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.finite &= bool(torch.isfinite(out[0]).all())
+        if self.keep:
+            self.logits.append(out[0].float().cpu())
+        return out
+
+
+def _attach_timers(engine, keep_logits=False) -> Tuple[_Timed, _Timed]:
+    prefill = _Timed(engine.model.prefill, engine.device, keep_logits)
+    decode = _Timed(engine._decode, engine.device, keep_logits)
+    engine.model.prefill = prefill  # the instance attribute shadows the method
+    engine._decode = decode
+    return prefill, decode
+
+
+def _submit_rows(results) -> List[tuple]:
+    return [(r.request_id, r.error, r.outcome.name) for r in results]
+
+
+def serve_full_width(cfg, requests, device) -> Dict[str, Any]:
+    """(a) ``ServeEngine`` with ``cfg`` at its published widths on the card:
+    one ``submit_batch`` of ``requests`` with every kernel call held against
+    its plain version and the results against a CPU registry's, then
+    ``SERVE_STEPS`` engine steps."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_tape_cuda
+    from repro_torch.kernels.hash_match import hash_match_cuda
+    from repro_torch.models import Model
+    from repro_torch.registry.presets import GATEWAY_SCHEMAS
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import _extract_prompt
+
+    scfg = ServeConfig(batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = Model(cfg).init(torch.Generator(device).manual_seed(SEED))
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    leaves = _leaves(params)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    engine = ServeEngine(cfg, params, scfg, endpoint_schemas=GATEWAY_SCHEMAS, device=device)
+    prefill, decode = _attach_timers(engine)
+
+    # the burst, with every kernel call captured; the counts are read before
+    # the calls are held against their plain versions
+    zero_launch_counts()
+    results = []
+    t0 = time.perf_counter()
+    captured = capture_kernel_inputs(lambda: results.extend(engine.submit_batch(requests)))
+    _sync(device)
+    admission_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    if launches["hash_match"] < 1 or launches["assertion_eval_window"] < 1:
+        raise AssertionError(f"serve admission launched no CSR kernel: {launches}")
+    for args in captured["hash_match"]:
+        _check_equal("hash_match in serve admission", hash_match_cuda(*args),
+                     ref.hash_match_ref(*args))
+    for args in captured["assertion_eval_window"]:
+        _check_equal("assertion_eval_window in serve admission",
+                     assertion_eval_window_tape_cuda(*args),
+                     ref.assertion_eval_window_tape_ref(*args))
+    # the same burst through a registry on the CPU; admission never runs
+    # that engine's LM, so it holds no parameters
+    cpu = ServeEngine(cfg, None, scfg, endpoint_schemas=GATEWAY_SCHEMAS, device="cpu")
+    want = _submit_rows(cpu.submit_batch(requests))
+    got = _submit_rows(results)
+    if got != want:
+        diff = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"serve admission: {diff} SubmitResults differ from the CPU registry")
+    outcomes = collections.Counter(r[2] for r in got)
+
+    queued = [len(s.tokens) for s in engine.queue]
+    longest = max(engine.queue, key=lambda s: len(s.tokens)).tokens
+    active = [engine.step() for _ in range(SERVE_STEPS)]
+    if not (prefill.finite and decode.finite):
+        raise AssertionError("serve: non-finite logits")
+    if not all(active) or len(decode.ms) != SERVE_STEPS:
+        raise AssertionError(f"serve: decode steps with active slots {active}")
+    # the keys each step's active rows attend to (its index + 1 each), read once
+    kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * cfg.dtype().itemsize
+    kv_bytes = [kv_row * n * (i + 1) for n, i in zip(active, decode.cache_len)]
+    prefill_ms, decode_ms = list(prefill.ms), list(decode.ms)  # before the profiled step
+
+    # the longest admitted prompt's prefill alone, by CUDA events
+    tokens = torch.as_tensor([longest], dtype=torch.int32, device=device)
+    prefill_alone_ms = device_ms(lambda: Model(cfg).prefill(params, tokens, SERVE_MAX_LEN), reps=5)
+    # the decode step's bound: every weight byte but the embedding table's
+    # (a step reads only its rows), plus the cache rows the step attends
+    emb = params["embedding"]["tokens"]
+    weight_bytes = param_bytes - emb.numel() * emb.element_size() + \
+        SERVE_SLOTS * emb.shape[1] * emb.element_size()
+    # the prefill's bound: the same weight bytes, or two operations a weight
+    # a token on the tensor cores
+    prefill_bound_ms = max(weight_bytes / HBM_BYTES_PER_S,
+                           2 * weight_bytes / emb.element_size() * len(longest)
+                           / BF16_TENSOR_OPS_PER_S) * 1e3
+    step_ms = statistics.median(decode_ms)
+    median_kv = statistics.median(kv_bytes)
+    bound_ms = (weight_bytes + median_kv) / HBM_BYTES_PER_S * 1e3
+    tokens_per_s = sum(active) / (sum(decode_ms) / 1e3)
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    # one more step under the profiler: the device's share of an eager step
+    step_profile = profile(engine.step, "serve decode step") if device.type == "cuda" else None
+    print(f"[serve] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"padded to {cfg.padded_vocab}; {cfg.param_count()} parameters by param_count, "
+          f"{sum(t.numel() for t in leaves)} tensor elements, {param_bytes} B in "
+          f"{cfg.param_dtype}; init {init_s:.2f} s")
+    print(f"[serve] submit_batch of {len(requests)} requests: {admission_ms:.3f} ms; outcomes "
+          f"{dict(sorted(outcomes.items()))}; kernel launches {launches}, every call equal to "
+          f"its plain version; SubmitResults equal to the CPU registry's")
+    print(f"[serve] {len(queued)} prompts queued ({min(queued)}-{max(queued)} tokens); "
+          f"{SERVE_STEPS} steps at batch_slots={SERVE_SLOTS}, max_len={SERVE_MAX_LEN}: "
+          f"{len(prefill_ms)} prefills {', '.join(f'{ms:.3f}' for ms in prefill_ms)} ms; the "
+          f"longest prompt ({len(longest)} tokens) alone {prefill_alone_ms:.3f} ms by CUDA events"
+          f" (bound {prefill_bound_ms:.3f} ms)")
+    print(f"[serve] decode step median {step_ms:.3f} ms over {len(decode_ms)} steps "
+          f"(min {min(decode_ms):.3f}, max {max(decode_ms):.3f}), {tokens_per_s:.1f} tokens/s; "
+          f"bound {bound_ms:.3f} ms ({weight_bytes} weight B + {median_kv:.0f} KV-cache B at "
+          f"3.35 TB/s), step/bound {step_ms / bound_ms:.2f}; peak memory {peak} B")
+    out = {
+        "arch": cfg.name, "param_count": cfg.param_count(), "param_bytes": param_bytes,
+        "param_dtype": cfg.param_dtype, "init_s": init_s, "burst": len(requests),
+        "admission_ms": admission_ms, "outcomes": dict(outcomes), "launches": launches,
+        "queued": len(queued), "steps": SERVE_STEPS, "batch_slots": SERVE_SLOTS,
+        "max_len": SERVE_MAX_LEN, "prefill_ms": prefill_ms,
+        "prefill_alone_ms": prefill_alone_ms, "prefill_alone_tokens": len(longest),
+        "prefill_bound_ms": prefill_bound_ms,
+        "decode_ms": decode_ms, "decode_step_ms": step_ms, "tokens_per_s": tokens_per_s,
+        "active_slots": active, "decode_bound_ms": bound_ms, "weight_bytes": weight_bytes,
+        "kv_bytes_median": median_kv, "max_memory_allocated": peak,
+        "step_profile": step_profile,
+        "admitted_prompts": [_extract_prompt(json.loads(body)) for (_, body), r
+                             in zip(requests, results) if r.request_id is not None],
+    }
+    del engine, params, leaves, cpu
+    return out
+
+
+def cache_vs_full(cfg, prompt: List[int], device) -> Dict[str, Any]:
+    """(b) Full width in float32: prefill of L-1 tokens then ``decode_step``
+    of the last at index L-1 against ``prefill`` of all L tokens."""
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, param_dtype="float32", activation_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(SEED))
+    tokens = torch.as_tensor([prompt], dtype=torch.int32, device=device)
+    n = len(prompt)
+    full, _ = model.prefill(params, tokens, max_len=n)
+    _, cache = model.prefill(params, tokens[:, :-1], max_len=n)
+    step, _ = model.decode_step(params, tokens[:, -1:], cache, n - 1)
+    _sync(device)
+    # the real vocabulary: the padded ids are masked to -1e30 in both
+    full, step = full[0, -1, : cfg.vocab_size].double(), step[0, -1, : cfg.vocab_size].double()
+    ratio = float((step - full).abs().max() / full.abs().max())
+    same = int(full.argmax()) == int(step.argmax())
+    print(f"[serve] cache path against the full path, {cfg.name} in float32 (TF32 off), "
+          f"L={n}: max |dlogit| / max |logit| = {ratio:.3e} (limit {CACHE_REL:.0e}); argmax "
+          f"{'equal' if same else 'DIFFERS'}")
+    if not (ratio <= CACHE_REL and same):
+        raise AssertionError("serve: the cache path disagrees with the full path")
+    del params, cache
+    return {"L": n, "max_rel_err": ratio, "limit": CACHE_REL, "argmax_equal": same}
+
+
+def card_vs_cpu(cfg, prompts: List[str], device) -> Dict[str, Any]:
+    """(c) A reduced engine in float32 serves the same prompts (without
+    max_tokens, so ``default_max_tokens`` holds) on the card and on the CPU,
+    from one set of parameters made on the CPU."""
+    from repro_torch.models import Model
+    from repro_torch.registry.presets import GATEWAY_SCHEMAS
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = cfg.reduced(param_dtype="float32", activation_dtype="float32")
+    params = Model(cfg).init(torch.Generator("cpu").manual_seed(SEED))
+    scfg = ServeConfig(batch_slots=2, max_len=256, default_max_tokens=8)
+    runs = {}
+    for where, p in ((device, _tree_to(params, device)), (torch.device("cpu"), params)):
+        engine = ServeEngine(cfg, p, scfg, endpoint_schemas=GATEWAY_SCHEMAS, device=where)
+        prefill, decode = _attach_timers(engine, keep_logits=True)
+        for prompt in prompts:
+            rid, err = engine.submit(json.dumps({"prompt": prompt}))
+            if rid is None:
+                raise AssertionError(f"serve: card-vs-CPU request rejected: {err}")
+        held = list(engine.queue)
+        engine.run_until_drained(max_steps=256)
+        runs[where.type] = ([s.generated for s in held], prefill.logits + decode.logits)
+    (ids, logits), (cpu_ids, cpu_logits) = runs[device.type], runs["cpu"]
+    if len(logits) != len(cpu_logits):
+        raise AssertionError("serve: card and CPU ran different numbers of LM calls")
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(logits, cpu_logits))  # the reduced vocab has no padding
+    print(f"[serve] card against CPU, reduced {cfg.name} in float32: {len(prompts)} prompts "
+          f"({', '.join(str(len(s)) for s in ids)} tokens generated), {len(logits)} LM calls, "
+          f"max |dlogit| / max |logit| = {worst:.3e} (limit {CARD_CPU_REL:.0e}); ids "
+          f"{'equal' if ids == cpu_ids else 'DIFFER'}")
+    if worst > CARD_CPU_REL or ids != cpu_ids:
+        raise AssertionError("serve: the card's engine disagrees with the CPU's")
+    return {"prompts": len(prompts), "lm_calls": len(logits), "max_rel_err": worst,
+            "limit": CARD_CPU_REL, "ids": ids}
+
+
+def serve_phase(docs, endpoints, smi: str) -> Dict[str, Any]:
+    """Phase 8 on the card: (a) the full-width engine, (b) its cache path in
+    float32, (c) a reduced engine on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import tokenizer
+
+    device = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    # the gateway mix as clients send it: (endpoint, request_json) pairs
+    requests = [(e, json.dumps(d)) for d, e in zip(docs[:SERVE_BURST], endpoints)]
+    full = serve_full_width(cfg, requests, device)
+    admitted = [p for p in full.pop("admitted_prompts") if p]
+    gc.collect()
+    torch.cuda.empty_cache()
+    longest = max(admitted, key=len)
+    check = cache_vs_full(cfg, tokenizer.encode(longest, eos=False), device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the first four admitted prompts of different lengths
+    picked: List[str] = []
+    for prompt in admitted:
+        if len(picked) < 4 and all(len(prompt) != len(q) for q in picked):
+            picked.append(prompt)
+    cross = card_vs_cpu(cfg, picked, device)
+    return {"card": smi, **full, "cache_vs_full": check, "card_vs_cpu": cross}
+
+
 def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -1101,10 +1400,12 @@ def run() -> int:
         csr_calls["assertion_eval_window"])
     kernels[0]["dense"] = hash_match_at_dense(dense_calls["hash_match"])
     kernels.append(assertion_eval_at_main(dense_calls["assertion_eval"]))
+    serve = serve_phase(docs, endpoints, smi)
     for row in kernels:
         row["launches_by_path"] = {
             "main": main["launches"][row["name"]],
             **{f"registry_{k}": v["launches"][row["name"]] for k, v in registry.items()},
+            "serve": serve["launches"][row["name"]],
         }
     kernels[-1]["launches"] = registry["dense"]["launches"]["assertion_eval"]
     kernels[0]["dense"]["launches"] = registry["dense"]["launches"]["hash_match"]
@@ -1117,6 +1418,7 @@ def run() -> int:
         "valid_share_of_decided": main["valid_share_of_decided"], "profile": prof,
         "host_ms_by_phase": host, "registry": registry,
     }}))
+    print(json.dumps({"serve": serve}))
     print(json.dumps({"kernels": kernels, "timing_floor": floor}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

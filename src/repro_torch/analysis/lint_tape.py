@@ -33,17 +33,22 @@ Invariants checked (DESIGN.md §15):
   per-member counts, ``roots``/``member_prop_start`` mirror the
   offset tables, per-member horizons reproduce from the DAG, and
   per-member frontier/circuit counts add up.
+
+CLI::
+
+    python -m repro_torch.analysis.lint_tape --presets [--device cpu]   # registry presets + linked group tapes
 """
 
 from __future__ import annotations
 
-from typing import List
+import sys
+from typing import List, Optional
 
 import numpy as np
 
 from ..core.tape import LOC_FRONTIER, LOC_INVALID, LOC_UNTRACKED, LocationTape
 
-__all__ = ["TapeLintError", "lint_tape", "assert_tape"]
+__all__ = ["TapeLintError", "lint_tape", "assert_tape", "main"]
 
 _SENTINELS = (-1, LOC_UNTRACKED, LOC_INVALID, LOC_FRONTIER)
 
@@ -368,3 +373,70 @@ def lint_tape(tape: LocationTape) -> List[str]:
 
     return out
 
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+
+def _lint_presets(verbose: bool = True, device=None) -> int:
+    """Build every registry preset tape plus the linked group tapes and
+    lint each (the registry on ``device``: cuda unless told otherwise);
+    returns a process exit code."""
+    from ..registry.presets import GATEWAY_SCHEMAS
+    from ..registry.registry import SchemaRegistry
+
+    failures = 0
+    reg = SchemaRegistry(device=device)
+    for name, schema in GATEWAY_SCHEMAS.items():
+        reg.register(name, schema)
+    for name in GATEWAY_SCHEMAS:
+        entry = reg.get(name)
+        if entry.tape is None:
+            if verbose:
+                print(f"  - {name}: not batchable ({entry.stats.fallback_reason}); skipped")
+            continue
+        problems = lint_tape(entry.tape)
+        status = "ok" if not problems else "FAIL"
+        if verbose or problems:
+            print(f"  - {name} (v{entry.version}): {status}")
+        for p in problems:
+            failures += 1
+            print(f"      {p}")
+    for group in sorted(reg.groups(), key=lambda g: g.label):
+        problems = lint_tape(group.tape)
+        status = "ok" if not problems else "FAIL"
+        if verbose or problems:
+            print(f"  - group {group.label} {list(group.members)}: {status}")
+        for p in problems:
+            failures += 1
+            print(f"      {p}")
+    legacy = reg.linked_tape()
+    if legacy is not None:
+        problems = lint_tape(legacy)
+        if verbose or problems:
+            print(f"  - legacy linked tape: {'ok' if not problems else 'FAIL'}")
+        for p in problems:
+            failures += 1
+            print(f"      {p}")
+    return 1 if failures else 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="repro_torch.analysis.lint_tape", description=__doc__)
+    ap.add_argument("--presets", action="store_true", help="lint registry preset + linked group tapes")
+    ap.add_argument("-q", "--quiet", action="store_true", help="only print failures")
+    ap.add_argument("--device", default="cuda", help="the registry's device: cuda or cpu")
+    args = ap.parse_args(argv)
+    if not args.presets:
+        ap.error("nothing to lint: pass --presets")
+    print("tape lint: registry presets")
+    rc = _lint_presets(verbose=not args.quiet, device=args.device)
+    print("tape lint:", "clean" if rc == 0 else "violations found")
+    return rc
+
+
+if __name__ == "__main__":  # pragma: no cover
+    sys.exit(main())

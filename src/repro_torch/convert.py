@@ -1,12 +1,14 @@
-"""Carry a compiled tape and an encoded token table across from the JAX package.
+"""Carry a compiled tape, an encoded token table and LM weights across from
+the JAX package.
 
-For this system the "weights" are the compiled location tape and the
+For the validator the "weights" are the compiled location tape and the
 encoded document table.  The port builds both itself from its own copy of
-the front end; these helpers exist so that a test can hand the *same* tape
-and table to both executors.  They take the reference objects' fields as a
-plain mapping of numpy arrays and Python values (for example
-``{f.name: getattr(tape, f.name) for f in dataclasses.fields(tape)}``), so
-this module needs nothing of the JAX package.
+the front end; these helpers exist so that a test can hand the *same* tape,
+table and LM parameters to both packages.  They take the reference objects
+as plain numpy arrays and Python values (for example
+``{f.name: getattr(tape, f.name) for f in dataclasses.fields(tape)}``, or
+``jax.device_get(params)``), so this module needs nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -15,12 +17,14 @@ import dataclasses
 from typing import Any, Dict, Mapping
 
 import numpy as np
+import torch
 
+from .core.batch_executor import resolve_device
 from .core.tape import LocationTape
 from .data.doc_table import TokenTable
 from .registry.linker import LinkedTape
 
-__all__ = ["tape_from_reference", "table_from_reference"]
+__all__ = ["tape_from_reference", "table_from_reference", "params_from_jax"]
 
 
 def _copy(value: Any) -> Any:
@@ -47,3 +51,27 @@ def table_from_reference(fields: Mapping[str, Any]) -> TokenTable:
     out: Dict[str, Any] = dict(fields)
     out["errors"] = dict(out.get("errors", {}))
     return _build(TokenTable, out)
+
+
+def params_from_jax(tree: Mapping[str, Any], device=None, dtype=None) -> Dict[str, Any]:
+    """The JAX ``Model.init`` tree, given as nested dicts of numpy arrays, as
+    the port's tensors on ``device`` (cuda unless told otherwise), in
+    ``dtype`` when given, else each leaf's own.
+
+    A bfloat16 leaf reaches numpy as an ``ml_dtypes`` array that
+    ``torch.from_numpy`` refuses; it goes through float32, which holds every
+    bfloat16 value exactly, and back.
+    """
+    device = resolve_device(device)
+    out: Dict[str, Any] = {}
+    for key, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            out[key] = params_from_jax(leaf, device, dtype)
+            continue
+        arr = np.asarray(leaf)
+        want = dtype
+        if arr.dtype.name == "bfloat16":
+            arr = arr.astype(np.float32)
+            want = want or torch.bfloat16
+        out[key] = torch.from_numpy(np.array(arr, copy=True)).to(device=device, dtype=want)
+    return out

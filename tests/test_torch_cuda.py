@@ -237,3 +237,15 @@ def test_registry_admission_cuda_equals_cpu(cuda, layout):
         verdicts.append([(v.outcome, v.valid, v.engine) for v in ctrl.admit_ex(docs, endpoints)])
     assert verdicts[0] == verdicts[1]
     assert any(engine == "batched" for _, _, engine in verdicts[0])
+
+
+def test_serve_engine_cuda_equals_cpu(cuda):
+    """A reduced float32 engine serves the same prompts on the card and on
+    the CPU: equal ids, every LM call's logits within chip_smoke's 1e-4
+    (card_vs_cpu raises otherwise)."""
+    from repro_torch.configs import get_config
+
+    chip = _load_chip_smoke()
+    prompts = ["hello world", "hi", "a longer prompt than the others", "x" * 60]
+    out = chip.card_vs_cpu(get_config("granite-3-8b"), prompts, cuda)
+    assert out["max_rel_err"] <= chip.CARD_CPU_REL and len(out["ids"]) == 4

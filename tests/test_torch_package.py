@@ -35,6 +35,8 @@ from repro_torch.data.doc_table import encode_batch
 from repro_torch.registry import link_tapes
 from repro_torch.registry.presets import GATEWAY_SCHEMAS
 
+from test_torch_registry import ADAPTED
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"
@@ -49,6 +51,10 @@ COPIED = [
     "core/interpreter.py", "analysis/structhash.py", "analysis/sat.py",
     "analysis/subsume.py", "analysis/normalize.py", "analysis/unroll.py",
     "obs/stats.py", "data/tokenizer.py",
+    # the serve slice: fault injection, events and SLOs, the LM's configs
+    "serve/faults.py", "serve/__init__.py", "obs/events.py", "obs/slo.py", "obs/__init__.py",
+    "models/__init__.py",
+    *(f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))),
 ]
 
 
@@ -73,6 +79,18 @@ def test_imports_and_runs_without_jax_or_repro():
         table = encode_batch([{"prompt": "hi"}, {"prompt": ""}], max_nodes=16)
         valid, decided, _ = BatchValidator(tape, device="cpu").validate_ex(table, [0, 0])
         assert valid.tolist() == [True, False] and decided.all()
+        import json, torch
+        from repro_torch.configs import get_config
+        from repro_torch.models import Model
+        from repro_torch.serve import ServeConfig, ServeEngine
+        cfg = get_config("granite-3-8b").reduced()
+        params = Model(cfg).init(torch.Generator().manual_seed(0))
+        engine = ServeEngine(cfg, params, ServeConfig(batch_slots=2, max_len=32),
+                             endpoint_schemas=GATEWAY_SCHEMAS, device="cpu")
+        results = engine.submit_batch([("complete", json.dumps({"prompt": "hi"})),
+                                       ("complete", json.dumps({"prompt": ""}))])
+        assert [r.outcome.name for r in results] == ["ADMITTED", "INVALID"]
+        assert engine.step() == 1
         loaded = [m for m, mod in sys.modules.items()
                   if mod is not None and m.split(".")[0] in ("jax", "repro")]
         assert not loaded, loaded
@@ -161,7 +179,9 @@ def test_lint_tape_copy_keeps_the_checks():
     # the package __init__ re-exports a function named like the module
     port_lint = importlib.import_module("repro_torch.analysis.lint_tape")
     ref_lint = importlib.import_module("repro.analysis.lint_tape")
-    assert not hasattr(port_lint, "main")  # the CLI needs the registry
+    # the CLI came across with the registry; the whole module is pinned to
+    # the reference's text plus a device substitution
+    assert "analysis/lint_tape.py" in ADAPTED and callable(port_lint.main)
     for fn in ("lint_tape", "assert_tape"):
         assert inspect.getsource(getattr(port_lint, fn)) == inspect.getsource(
             getattr(ref_lint, fn)

@@ -3,9 +3,10 @@
 ``SchemaRegistry`` and ``AdmissionController`` of the port (``device="cpu"``)
 and of the reference give the same ``Verdict``s, ``AdmitCounts``,
 ``PipelineStats`` counters, group facts, fallback reasons, hot-swap
-verdicts and launch-fault containment, in both executor layouts.  The two
-adapted modules are pinned to the reference's source: the port's file must
-equal the reference's text with exactly the declared substitutions.
+verdicts and launch-fault containment, in both executor layouts.  Every
+adapted module of the port (``ADAPTED``) is pinned to the reference's
+source: the port's file must equal the reference's text with exactly the
+declared substitutions.
 """
 
 import random
@@ -35,9 +36,9 @@ _EXPLAIN_RAISES = (
     '            raise NotImplementedError("explain_batch is not ported yet")\n'
 )
 
-# the only differences between the port's adapted modules and the
-# reference's: ``use_pallas`` becomes ``device`` (cuda unless told
-# otherwise), and batched explain raises instead of being dropped silently
+# each adapted module's only differences from the reference's text.  The
+# registry and the pipeline: ``use_pallas`` becomes ``device`` (cuda unless
+# told otherwise), and batched explain raises instead of being dropped
 ADAPTED = {
     "registry/registry.py": [
         ("from ..core.batch_executor import BatchValidator\n",
@@ -62,6 +63,134 @@ ADAPTED = {
         ('        opts INVALID verdicts into first-failure attribution."""\n',
          '        opts INVALID verdicts into first-failure attribution."""\n'
          + _EXPLAIN_RAISES),
+    ],
+    # the two registry CLIs: the registry's device is an argument
+    "analysis/lint_tape.py": [
+        ("    python -m repro.analysis.lint_tape --presets   # registry presets + linked group tapes\n",
+         "    python -m repro_torch.analysis.lint_tape --presets [--device cpu]"
+         "   # registry presets + linked group tapes\n"),
+        ("def _lint_presets(verbose: bool = True) -> int:\n",
+         "def _lint_presets(verbose: bool = True, device=None) -> int:\n"),
+        ('    lint each; returns a process exit code."""\n',
+         "    lint each (the registry on ``device``: cuda unless told otherwise);\n"
+         '    returns a process exit code."""\n'),
+        ("    reg = SchemaRegistry()\n", "    reg = SchemaRegistry(device=device)\n"),
+        ('prog="repro.analysis.lint_tape"', 'prog="repro_torch.analysis.lint_tape"'),
+        ('    ap.add_argument("-q", "--quiet", action="store_true", help="only print failures")\n',
+         '    ap.add_argument("-q", "--quiet", action="store_true", help="only print failures")\n'
+         '    ap.add_argument("--device", default="cuda", help="the registry\'s device: cuda or cpu")\n'),
+        ("    rc = _lint_presets(verbose=not args.quiet)\n",
+         "    rc = _lint_presets(verbose=not args.quiet, device=args.device)\n"),
+    ],
+    # and the report writes its own file, never the JAX package's
+    "analysis/report.py": [
+        ("CI archives the output as ``results/analysis_report.json`` and\n"
+         "``scripts/perf_report.py`` folds it into the trajectory report.\n",
+         "By default it writes ``results/analysis_report_torch.json``, beside\n"
+         "the JAX package's ``results/analysis_report.json``, which it never\n"
+         "overwrites.\n"),
+        ("    python -m repro.analysis.report [--out results/analysis_report.json]\n",
+         "    python -m repro_torch.analysis.report [--out results/analysis_report_torch.json]"
+         " [--device cpu]\n"),
+        ('def build_report() -> Dict[str, Any]:\n'
+         '    """Assemble the posture tree over the registry presets."""\n',
+         'def build_report(device=None) -> Dict[str, Any]:\n'
+         '    """Assemble the posture tree over the registry presets (the registry\n'
+         '    on ``device``: cuda unless told otherwise)."""\n'),
+        ("    reg = SchemaRegistry()\n", "    reg = SchemaRegistry(device=device)\n"),
+        ('prog="repro.analysis.report"', 'prog="repro_torch.analysis.report"'),
+        ('        default="results/analysis_report.json",\n'
+         '        help="output path (default: results/analysis_report.json)",\n'
+         "    )\n",
+         '        default="results/analysis_report_torch.json",\n'
+         '        help="output path (default: results/analysis_report_torch.json)",\n'
+         "    )\n"
+         '    ap.add_argument("--device", default="cuda", help="the registry\'s device: cuda or cpu")\n'),
+        ("    report = build_report()\n", "    report = build_report(device=args.device)\n"),
+    ],
+    # dtypes are torch dtypes
+    "models/config.py": [
+        ("import jax.numpy as jnp\n", "import torch\n"),
+        ("    def dtype(self) -> jnp.dtype:\n        return jnp.dtype(self.activation_dtype)\n",
+         "    def dtype(self) -> torch.dtype:\n        return getattr(torch, self.activation_dtype)\n"),
+        ("    def pdtype(self) -> jnp.dtype:\n        return jnp.dtype(self.param_dtype)\n",
+         "    def pdtype(self) -> torch.dtype:\n        return getattr(torch, self.param_dtype)\n"),
+    ],
+    # the engine: a device (cuda unless told otherwise) for the registry and
+    # every tensor, the eager decode step, torch in place of jnp; the
+    # verdicts, results, stats and the decode position are the reference's
+    "serve/engine.py": [
+        ("import jax\nimport jax.numpy as jnp\nimport numpy as np\n",
+         "import numpy as np\nimport torch\n"),
+        ("from ..core.outcomes import ValidationOutcome\n",
+         "from ..core.batch_executor import resolve_device\n"
+         "from ..core.outcomes import ValidationOutcome\n"),
+        ("        slo: Optional[SLObjective] = None,\n    ):\n        self.cfg = cfg\n",
+         "        slo: Optional[SLObjective] = None,\n        device=None,\n    ):\n"
+         "        self.cfg = cfg\n"
+         "        # the LM's and the registry's device: cuda unless told otherwise\n"
+         "        self.device = resolve_device(device)\n"),
+        ("registry if registry is not None else SchemaRegistry()\n",
+         "registry if registry is not None else SchemaRegistry(device=self.device)\n"),
+        ("        self._decode = jax.jit(self.model.decode_step)\n",
+         "        self._decode = self.model.decode_step  # eager: one launch per op\n"),
+        ("                    jnp.asarray([slot.tokens], jnp.int32),\n",
+         "                    torch.as_tensor([slot.tokens], dtype=torch.int32, device=self.device),\n"),
+        ("                next_tok = int(jnp.argmax(logits[0, -1]))\n",
+         "                next_tok = int(torch.argmax(logits[0, -1]))\n"),
+        ("                        self.scfg.batch_slots, self.scfg.max_len\n",
+         "                        self.scfg.batch_slots, self.scfg.max_len, device=self.device\n"),
+        ("            self.params, jnp.asarray(tokens), self._cache, jnp.int32(max_len_now)\n",
+         "            self.params, torch.as_tensor(tokens, device=self.device), self._cache,\n"
+         "            max_len_now,\n"),
+        ("            nxt = int(jnp.argmax(logits[i, 0]))\n",
+         "            nxt = int(torch.argmax(logits[i, 0]))\n"),
+        ('    """Copy a prefilled single-request cache into batch slot ``slot_idx``."""\n'
+         "\n"
+         "    def write(dst, src):\n"
+         "        if dst.ndim >= 2 and src.shape[0] == dst.shape[0]:  # (periods, B, ...)\n"
+         "            if src.shape[1] == 1 and dst.shape[1] > 1:\n"
+         "                return dst.at[:, slot_idx].set(src[:, 0].astype(dst.dtype))\n"
+         "        return dst\n"
+         "\n"
+         "    return jax.tree.map(write, batch_cache, slot_cache)\n",
+         '    """Copy a prefilled single-request cache into batch slot ``slot_idx``\n'
+         '    (in place)."""\n'
+         "    for name, dst in batch_cache.items():\n"
+         "        src = slot_cache[name]\n"
+         "        if isinstance(dst, dict):\n"
+         "            _write_slot_cache(dst, src, slot_idx)\n"
+         "        elif dst.ndim >= 2 and src.shape[0] == dst.shape[0]:  # (periods, B, ...)\n"
+         "            if src.shape[1] == 1 and dst.shape[1] > 1:\n"
+         "                dst[:, slot_idx] = src[:, 0].to(dst.dtype)\n"
+         "    return batch_cache\n"),
+    ],
+    # "auto" cost priors come from the port's own measurements (a file
+    # nothing writes yet), never from the JAX package's
+    "serve/scheduler.py": [
+        ('    # "auto" = seed priors from results/BENCH_registry.json when present;\n',
+         '    # "auto" = seed priors from results/BENCH_registry_torch.json (the\n'
+         "    # port's own measurements, never the JAX package's) when present;\n"),
+        ('                    / "BENCH_registry.json"\n',
+         '                    / "BENCH_registry_torch.json"\n'),
+    ],
+    # the serve launcher: a --device (cuda unless told otherwise) and a seeded
+    # torch.Generator on it
+    "launch/serve.py": [
+        ('"""Serving driver: ``python -m repro.launch.serve --arch <id>``.\n',
+         '"""Serve launcher: ``python -m repro_torch.launch.serve --arch <id> [--device cpu]``.\n'),
+        ('    ap.add_argument("--max-tokens", type=int, default=8)\n',
+         '    ap.add_argument("--max-tokens", type=int, default=8)\n'
+         '    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")\n'),
+        ("    import jax\n\n    from ..configs import get_config\n",
+         "    import torch\n\n    from ..configs import get_config\n"
+         "    from ..core.batch_executor import resolve_device\n"),
+        ("    params = model.init(jax.random.PRNGKey(0))\n",
+         "    device = resolve_device(args.device)\n"
+         "    params = model.init(torch.Generator(device).manual_seed(0))\n"),
+        ("        ServeConfig(batch_slots=4, max_len=128, default_max_tokens=args.max_tokens),\n",
+         "        ServeConfig(batch_slots=4, max_len=128, default_max_tokens=args.max_tokens),\n"
+         "        device=device,\n"),
     ],
 }
 
