@@ -54,13 +54,37 @@ Phases, each printed on its own lines:
    equals the prefill of all L (max |dlogit| <= 1e-3 max |logit|, argmax
    equal); (c) a reduced float32 engine serves the same four prompts on the
    card and on the CPU from one set of CPU-made parameters: ids equal,
-   every LM call's logits within 1e-4 max |logit|.
+   every LM call's logits within 1e-4 max |logit|;
+9. explain: phase 7's csr registry admission with ``explain=True``: every
+   ``hash_match`` and ``assertion_eval_window`` call (validate and explain
+   launches) held against its plain version; every batched INVALID verdict
+   must carry a site, equal to a ``device="cpu"`` registry's and blamed by
+   the sequential ``Validator``'s trace; one direct
+   ``BatchValidator.explain_batch`` on the largest link group's table
+   against the CPU's; the dense layout's empty sites; the median
+   ``admit_ex`` with and without explain (10 calls each, alternated, the
+   first of each pair swapped from pair to pair) and
+   the ``executor.explain`` host ms;
+10. families: (a) ``ServeEngine`` with moonshot-v1-16b-a3b (64 experts,
+   top-6) at its published widths and depth in bf16 admits the first 128
+   requests with ``explain=True`` (kernel calls and results held as in 8
+   (a)) and takes 16 steps; (b) rwkv6-3b at full width and depth in bf16:
+   ``Model.prefill`` of 17, 64, 128 and 64 tokens into a 4-slot cache and
+   16 decode steps; (c) the cache path against the full path in float32 at
+   L=64 for rwkv6-3b (full depth) and moonshot (12 of 48 layers), gated
+   where the reference's decode is consistent with its full path (RWKV's
+   channel mix without its token shift, moonshot routed to one expert with
+   room for every token; the published forms are measured beside them);
+   (d) reduced moonshot, arctic, jamba and rwkv6 in float32 on the card
+   against the CPU: ids equal, logits within 1e-4.
 
-Any mismatch or exception exits non-zero.  The last lines are the serve
-JSON line, the kernels JSON line (``launches`` counts the path each kernel serves: the CSR main
+Any mismatch or exception exits non-zero.  The last lines are the serve,
+explain and family JSON lines, the kernels JSON line (``launches`` counts the
+path each kernel serves: the CSR main
 path for the first two, the dense admission for ``assertion_eval``;
-``launches_by_path`` has every path's count, the serve burst's under
-``serve``; ``hash_match``'s ``dense``
+``launches_by_path`` has every path's count: the serve burst's under
+``serve``, phase 9's 10 timed explain admissions under ``explain``, the
+moonshot burst under ``serve_moe``; ``hash_match``'s ``dense``
 holds its time, bound and launches in the dense admission,
 ``assertion_eval_window``'s ``admission`` the same in the csr admission),
 the card's name and power limit, and
@@ -109,6 +133,14 @@ SERVE_MAX_LEN = 512
 SERVE_STEPS = 32
 CACHE_REL = 1e-3  # cache path against full path, float32 at full width
 CARD_CPU_REL = 1e-4  # card against CPU, reduced, float32
+# phase 10: the MoE and SSM families
+FAMILY_SERVE_ARCH = "moonshot-v1-16b-a3b"
+FAMILY_STEPS = 16
+RWKV_ARCH = "rwkv6-3b"
+RWKV_PROMPTS = (17, 64, 128)  # lengths the reference's 64-token chunk rule accepts
+CACHE_L = 64
+CACHE_CUT_LAYERS = 12  # moonshot's depth in float32 for the cache check
+FAMILY_CPU_ARCHS = ("moonshot-v1-16b-a3b", "arctic-480b", "jamba-1.5-large-398b", "rwkv6-3b")
 
 # the gateway's endpoint mix (benchmarks/registry.py): completions dominate,
 # moderation is the tail; charge is the tagged-union endpoint with circuits
@@ -1073,6 +1105,24 @@ def _leaves(tree) -> List[torch.Tensor]:
     return out
 
 
+def lm_ops(cfg, params, tokens: int) -> int:
+    """Operations of a prefill of ``tokens`` tokens: two a weight a token
+    for every matmul weight but the experts, the token table and the head
+    (the head and the final norm run on the last position only); each
+    expert's weights twice a capacity slot, since the reference's dispatch
+    einsums run every expert over its whole capacity."""
+    from repro_torch.models import moe as M
+
+    expert = sum(t.numel() for layer in params["stack"].values() if "moe" in layer
+                 for name, t in layer["moe"].items() if name in ("w_gate", "w_up", "w_down"))
+    emb = params["embedding"]
+    untied = emb["head"].numel() if "head" in emb else 0
+    head = untied or emb["tokens"].numel()  # a tied head is the token table
+    rest = sum(t.numel() for t in _leaves(params)) - expert - emb["tokens"].numel() - untied
+    slots = M._capacity(cfg.moe, tokens) if cfg.moe is not None else 0
+    return 2 * tokens * rest + 2 * head + 2 * expert * slots
+
+
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
@@ -1115,11 +1165,12 @@ def _submit_rows(results) -> List[tuple]:
     return [(r.request_id, r.error, r.outcome.name) for r in results]
 
 
-def serve_full_width(cfg, requests, device) -> Dict[str, Any]:
+def serve_full_width(cfg, requests, device, steps: int = SERVE_STEPS,
+                     explain: bool = False) -> Dict[str, Any]:
     """(a) ``ServeEngine`` with ``cfg`` at its published widths on the card:
-    one ``submit_batch`` of ``requests`` with every kernel call held against
-    its plain version and the results against a CPU registry's, then
-    ``SERVE_STEPS`` engine steps."""
+    one ``submit_batch`` of ``requests`` (``explain``: with first-failure
+    sites) with every kernel call held against its plain version and the
+    results against a CPU registry's, then ``steps`` engine steps."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.assertion_eval_window import assertion_eval_window_tape_cuda
     from repro_torch.kernels.hash_match import hash_match_cuda
@@ -1145,7 +1196,8 @@ def serve_full_width(cfg, requests, device) -> Dict[str, Any]:
     zero_launch_counts()
     results = []
     t0 = time.perf_counter()
-    captured = capture_kernel_inputs(lambda: results.extend(engine.submit_batch(requests)))
+    captured = capture_kernel_inputs(
+        lambda: results.extend(engine.submit_batch(requests, explain=explain)))
     _sync(device)
     admission_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
@@ -1161,7 +1213,7 @@ def serve_full_width(cfg, requests, device) -> Dict[str, Any]:
     # the same burst through a registry on the CPU; admission never runs
     # that engine's LM, so it holds no parameters
     cpu = ServeEngine(cfg, None, scfg, endpoint_schemas=GATEWAY_SCHEMAS, device="cpu")
-    want = _submit_rows(cpu.submit_batch(requests))
+    want = _submit_rows(cpu.submit_batch(requests, explain=explain))
     got = _submit_rows(results)
     if got != want:
         diff = sum(a != b for a, b in zip(got, want))
@@ -1170,10 +1222,10 @@ def serve_full_width(cfg, requests, device) -> Dict[str, Any]:
 
     queued = [len(s.tokens) for s in engine.queue]
     longest = max(engine.queue, key=lambda s: len(s.tokens)).tokens
-    active = [engine.step() for _ in range(SERVE_STEPS)]
+    active = [engine.step() for _ in range(steps)]
     if not (prefill.finite and decode.finite):
         raise AssertionError("serve: non-finite logits")
-    if not all(active) or len(decode.ms) != SERVE_STEPS:
+    if not all(active) or len(decode.ms) != steps:
         raise AssertionError(f"serve: decode steps with active slots {active}")
     # the keys each step's active rows attend to (its index + 1 each), read once
     kv_row = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * cfg.dtype().itemsize
@@ -1188,11 +1240,10 @@ def serve_full_width(cfg, requests, device) -> Dict[str, Any]:
     emb = params["embedding"]["tokens"]
     weight_bytes = param_bytes - emb.numel() * emb.element_size() + \
         SERVE_SLOTS * emb.shape[1] * emb.element_size()
-    # the prefill's bound: the same weight bytes, or two operations a weight
-    # a token on the tensor cores
+    # the prefill's bound: the same weight bytes, or its operations on the
+    # tensor cores
     prefill_bound_ms = max(weight_bytes / HBM_BYTES_PER_S,
-                           2 * weight_bytes / emb.element_size() * len(longest)
-                           / BF16_TENSOR_OPS_PER_S) * 1e3
+                           lm_ops(cfg, params, len(longest)) / BF16_TENSOR_OPS_PER_S) * 1e3
     step_ms = statistics.median(decode_ms)
     median_kv = statistics.median(kv_bytes)
     bound_ms = (weight_bytes + median_kv) / HBM_BYTES_PER_S * 1e3
@@ -1205,11 +1256,12 @@ def serve_full_width(cfg, requests, device) -> Dict[str, Any]:
           f"padded to {cfg.padded_vocab}; {cfg.param_count()} parameters by param_count, "
           f"{sum(t.numel() for t in leaves)} tensor elements, {param_bytes} B in "
           f"{cfg.param_dtype}; init {init_s:.2f} s")
-    print(f"[serve] submit_batch of {len(requests)} requests: {admission_ms:.3f} ms; outcomes "
+    print(f"[serve] submit_batch of {len(requests)} requests"
+          f"{' with explain=True' if explain else ''}: {admission_ms:.3f} ms; outcomes "
           f"{dict(sorted(outcomes.items()))}; kernel launches {launches}, every call equal to "
           f"its plain version; SubmitResults equal to the CPU registry's")
     print(f"[serve] {len(queued)} prompts queued ({min(queued)}-{max(queued)} tokens); "
-          f"{SERVE_STEPS} steps at batch_slots={SERVE_SLOTS}, max_len={SERVE_MAX_LEN}: "
+          f"{steps} steps at batch_slots={SERVE_SLOTS}, max_len={SERVE_MAX_LEN}: "
           f"{len(prefill_ms)} prefills {', '.join(f'{ms:.3f}' for ms in prefill_ms)} ms; the "
           f"longest prompt ({len(longest)} tokens) alone {prefill_alone_ms:.3f} ms by CUDA events"
           f" (bound {prefill_bound_ms:.3f} ms)")
@@ -1221,7 +1273,7 @@ def serve_full_width(cfg, requests, device) -> Dict[str, Any]:
         "arch": cfg.name, "param_count": cfg.param_count(), "param_bytes": param_bytes,
         "param_dtype": cfg.param_dtype, "init_s": init_s, "burst": len(requests),
         "admission_ms": admission_ms, "outcomes": dict(outcomes), "launches": launches,
-        "queued": len(queued), "steps": SERVE_STEPS, "batch_slots": SERVE_SLOTS,
+        "queued": len(queued), "steps": steps, "batch_slots": SERVE_SLOTS,
         "max_len": SERVE_MAX_LEN, "prefill_ms": prefill_ms,
         "prefill_alone_ms": prefill_alone_ms, "prefill_alone_tokens": len(longest),
         "prefill_bound_ms": prefill_bound_ms,
@@ -1236,6 +1288,19 @@ def serve_full_width(cfg, requests, device) -> Dict[str, Any]:
     return out
 
 
+def _cache_check(model, params, tokens: torch.Tensor, vocab: int) -> Tuple[float, bool]:
+    """(max |dlogit| / max |logit|, argmax equal) of prefill of L-1 tokens
+    then ``decode_step`` of the last at index L-1 against prefill of all L,
+    over the real vocabulary (the padded ids are -1e30 in both)."""
+    n = tokens.shape[1]
+    full, _ = model.prefill(params, tokens, max_len=n)
+    _, cache = model.prefill(params, tokens[:, :-1], max_len=n)
+    step, _ = model.decode_step(params, tokens[:, -1:], cache, n - 1)
+    full, step = full[0, -1, :vocab].double(), step[0, -1, :vocab].double()
+    return float((step - full).abs().max() / full.abs().max()), int(full.argmax()) == int(
+        step.argmax())
+
+
 def cache_vs_full(cfg, prompt: List[int], device) -> Dict[str, Any]:
     """(b) Full width in float32: prefill of L-1 tokens then ``decode_step``
     of the last at index L-1 against ``prefill`` of all L tokens."""
@@ -1247,20 +1312,13 @@ def cache_vs_full(cfg, prompt: List[int], device) -> Dict[str, Any]:
     params = model.init(torch.Generator(device).manual_seed(SEED))
     tokens = torch.as_tensor([prompt], dtype=torch.int32, device=device)
     n = len(prompt)
-    full, _ = model.prefill(params, tokens, max_len=n)
-    _, cache = model.prefill(params, tokens[:, :-1], max_len=n)
-    step, _ = model.decode_step(params, tokens[:, -1:], cache, n - 1)
-    _sync(device)
-    # the real vocabulary: the padded ids are masked to -1e30 in both
-    full, step = full[0, -1, : cfg.vocab_size].double(), step[0, -1, : cfg.vocab_size].double()
-    ratio = float((step - full).abs().max() / full.abs().max())
-    same = int(full.argmax()) == int(step.argmax())
+    ratio, same = _cache_check(model, params, tokens, cfg.vocab_size)
     print(f"[serve] cache path against the full path, {cfg.name} in float32 (TF32 off), "
           f"L={n}: max |dlogit| / max |logit| = {ratio:.3e} (limit {CACHE_REL:.0e}); argmax "
           f"{'equal' if same else 'DIFFERS'}")
     if not (ratio <= CACHE_REL and same):
         raise AssertionError("serve: the cache path disagrees with the full path")
-    del params, cache
+    del params
     return {"L": n, "max_rel_err": ratio, "limit": CACHE_REL, "argmax_equal": same}
 
 
@@ -1325,7 +1383,332 @@ def serve_phase(docs, endpoints, smi: str) -> Dict[str, Any]:
         if len(picked) < 4 and all(len(prompt) != len(q) for q in picked):
             picked.append(prompt)
     cross = card_vs_cpu(cfg, picked, device)
-    return {"card": smi, **full, "cache_vs_full": check, "card_vs_cpu": cross}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"card": smi, **full, "cache_vs_full": check, "card_vs_cpu": cross,
+            "longest_prompt": tokenizer.encode(longest, eos=False)}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: batched explain on the CSR path
+# ---------------------------------------------------------------------------
+
+
+def _site(v) -> Any:
+    return None if v.site is None else dataclasses.astuple(v.site)
+
+
+def _explain_rows(verdicts) -> List[tuple]:
+    return [(v.outcome.name, v.valid, v.engine, v.reason, _site(v)) for v in verdicts]
+
+
+def explain_phase(docs, endpoints) -> Dict[str, Any]:
+    """Registry admission with ``explain=True`` in the csr layout: every
+    kernel call held against its plain version, the sites against a CPU
+    registry's and the sequential ``Validator``'s trace, one direct
+    ``explain_batch`` call, the dense layout's empty sites, and the cost of
+    explain beside the same admission without it."""
+    from repro_torch.core.batch_executor import BatchValidator
+    from repro_torch.data.doc_table import encode_batch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_tape_cuda
+    from repro_torch.kernels.hash_match import hash_match_cuda
+
+    ctrl = admission_controller("csr")  # the default device: cuda
+    reg = ctrl.registry
+    results: List[Any] = []
+    captured = capture_kernel_inputs(
+        lambda: results.extend(ctrl.admit_ex(docs, endpoints, explain=True)))
+    for args in captured["hash_match"]:
+        _check_equal("hash_match in explain admission", hash_match_cuda(*args),
+                     ref.hash_match_ref(*args))
+    for args in captured["assertion_eval_window"]:
+        _check_equal("assertion_eval_window in explain admission",
+                     assertion_eval_window_tape_cuda(*args),
+                     ref.assertion_eval_window_tape_ref(*args))
+    rows = _explain_rows(results)
+    invalid = [i for i, v in enumerate(results) if v.engine == "batched"
+               and v.outcome.name == "INVALID"]
+    if not invalid:
+        raise AssertionError("explain: no batched INVALID verdict in the gateway mix")
+    missing = [i for i in invalid if results[i].site is None]
+    if missing:
+        raise AssertionError(f"explain: {len(missing)} batched INVALID verdicts carry no site "
+                             "(the registry swallows an explain_batch failure into empty sites)")
+    cpu = _explain_rows(admission_controller("csr", device="cpu").admit_ex(
+        docs, endpoints, explain=True))
+    if cpu != rows:
+        diff = sum(a != b for a, b in zip(cpu, rows))
+        raise AssertionError(f"explain: {diff} verdicts or sites differ from the CPU registry")
+    unblamed = []
+    for i in invalid:
+        ok, trace = reg.get(endpoints[i]).validator.explain(docs[i])
+        if ok or results[i].site.schema_path not in {path for path, _ in trace}:
+            unblamed.append(i)
+    if unblamed:
+        raise AssertionError(f"explain: {len(unblamed)} sites are not blamed by the sequential "
+                             f"trace (first: request {unblamed[0]}, {results[unblamed[0]].site})")
+    # one validate launch per link group, one explain launch per group with
+    # a batched INVALID row
+    n_groups = len({reg.group_of(e).label for e in set(endpoints)})
+    groups = {reg.group_of(endpoints[i]).label for i in invalid}
+    per_call = {"hash_match": n_groups + len(groups),
+                "assertion_eval_window": n_groups + len(groups), "assertion_eval": 0}
+    if {k: len(v) for k, v in captured.items()} != per_call:
+        raise AssertionError(f"explain admission: kernel calls "
+                             f"{ {k: len(v) for k, v in captured.items()} }, want {per_call}")
+
+    # the largest link group's table through explain_batch itself, with no
+    # except around it, against the CPU registry's group
+    by_group = collections.Counter(reg.group_of(e).label for e in endpoints)
+    label = by_group.most_common(1)[0][0]
+    group = next(g for g in reg.groups() if g.label == label)
+    picked = [i for i, e in enumerate(endpoints) if reg.group_of(e).label == label]
+    pad = (1 << (len(picked) - 1).bit_length()) - len(picked)
+    group_docs = [docs[i] for i in picked] + [None] * pad
+    table = encode_batch(group_docs, max_nodes=MAX_NODES, isolate=True)
+    ids = np.asarray([group.member_index[endpoints[i]] for i in picked] + [0] * pad, np.int32)
+    zero_launch_counts()
+    direct = group.validator.explain_batch(table, ids, docs=group_docs)
+    direct_launches = launch_counts()
+    cpu_group = BatchValidator(group.tape, device="cpu")
+    want = cpu_group.explain_batch(table, ids, docs=group_docs)
+    direct_rows = [None if s is None else dataclasses.astuple(s) for s in direct]
+    if direct_rows != [None if s is None else dataclasses.astuple(s) for s in want]:
+        raise AssertionError("explain_batch on the card differs from the CPU's")
+    for j, i in enumerate(picked):
+        if i in invalid and direct_rows[j] != rows[i][4]:
+            raise AssertionError(f"explain_batch differs from the registry's site of request {i}")
+    if direct_launches != {"hash_match": 1, "assertion_eval_window": 1, "assertion_eval": 0}:
+        raise AssertionError(f"explain_batch launches {direct_launches}")
+
+    # the dense layout: explain_batch raises there and the registry swallows
+    # it, as the reference does -- empty sites, verdicts otherwise unchanged
+    dense = admission_controller("dense")
+    dense_explained = dense.admit_ex(docs, endpoints, explain=True)
+    dense_plain = dense.admit_ex(docs, endpoints)
+    if any(v.site is not None for v in dense_explained if v.engine == "batched"):
+        raise AssertionError("explain: the dense layout gave a batched site")
+    if [r[:4] for r, v in zip(_explain_rows(dense_explained), dense_explained)
+            if v.engine == "batched"] != [r[:4] for r, v in zip(
+            _explain_rows(dense_plain), dense_plain) if v.engine == "batched"]:
+        raise AssertionError("explain: dense verdicts changed under explain=True")
+
+    # cost: explain=True and explain=False alternated, 10 calls each, the
+    # flag that goes first swapped from pair to pair so that neither gains
+    # from warm host caches; the explain path's launches are counted from 0
+    # around each explain call
+    times: Dict[bool, List[float]] = {True: [], False: []}
+    launches = {k: 0 for k in KERNELS}
+    for i in range(TIMED_LAUNCHES):
+        for flag in ((True, False) if i % 2 == 0 else (False, True)):
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            ctrl.admit_ex(docs, endpoints, explain=flag)
+            times[flag].append((time.perf_counter() - t0) * 1e3)
+            if flag:
+                launches = {k: launches[k] + v for k, v in launch_counts().items()}
+    if launches != {k: v * TIMED_LAUNCHES for k, v in per_call.items()}:
+        raise AssertionError(f"explain admission: launches {launches} in {TIMED_LAUNCHES} calls, "
+                             f"want {per_call} per call")
+    host = host_phases(lambda: ctrl.admit_ex(docs, endpoints, explain=True), "explain", reps=3)
+    with_ms, without_ms = statistics.median(times[True]), statistics.median(times[False])
+    keywords = collections.Counter(results[i].site.keyword for i in invalid)
+    print(f"[explain] csr admission of {len(docs)} requests with explain=True: "
+          f"{len(invalid)} batched INVALID verdicts, every one with a site, equal to the CPU "
+          f"registry's and blamed by the sequential trace; sites by keyword "
+          f"{dict(keywords.most_common())}; kernel calls per call {per_call} (explain launches "
+          f"in {len(groups)} groups), every call equal to its plain version")
+    print(f"[explain] median admit_ex {with_ms:.3f} ms with explain, {without_ms:.3f} ms without "
+          f"({TIMED_LAUNCHES} calls each, alternated): explain adds "
+          f"{with_ms - without_ms:.3f} ms; executor.explain {host.get('executor.explain', 0):.3f} "
+          f"host ms a call, admit.explain {host.get('admit.explain', 0):.3f}")
+    print(f"[explain] explain_batch on group {label} ({len(picked)} requests padded to "
+          f"{len(group_docs)}): sites equal to the CPU's and the registry's, launches "
+          f"{direct_launches}; dense layout: no batched site, verdicts unchanged")
+    return {"invalid": len(invalid), "explain_groups": len(groups), "per_call": per_call,
+            "launches": launches, "admit_ms_explain": with_ms, "admit_ms_plain": without_ms,
+            "host_ms_by_phase": host, "direct_group": label, "direct_rows": len(group_docs),
+            "keywords": dict(keywords)}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the MoE and SSM families
+# ---------------------------------------------------------------------------
+
+
+def rwkv_full_width(cfg, prompt: List[int], device) -> Dict[str, Any]:
+    """(b) rwkv6-3b at its published widths and depth in bf16: prefill of
+    each slot's prompt (17, 64, 128 and 64 tokens: lengths the reference's
+    chunk rule accepts) through ``Model.prefill``, written into a 4-slot
+    cache, then ``FAMILY_STEPS`` greedy ``decode_step``s."""
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import _write_slot_cache
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(SEED))
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN, device)
+    lengths = RWKV_PROMPTS + RWKV_PROMPTS[1:2]
+    prefill_ms, tokens = [], []
+    for slot, n in enumerate(lengths):
+        ids = torch.as_tensor([prompt[:n]], dtype=torch.int32, device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, one = model.prefill(params, ids, SERVE_MAX_LEN)
+        _sync(device)
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        _write_slot_cache(cache, one, slot)
+        tokens.append(int(torch.argmax(logits[0, -1])))
+    step_ms, finite = [], True
+    for i in range(FAMILY_STEPS):
+        tok = torch.as_tensor(tokens, dtype=torch.int32, device=device)[:, None]
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, cache, max(lengths) + i)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite &= bool(torch.isfinite(logits).all())
+        tokens = [int(t) for t in torch.argmax(logits[:, -1], dim=-1)]
+    if not finite:
+        raise AssertionError("rwkv6: non-finite logits")
+    longest = torch.as_tensor([prompt[: max(lengths)]], dtype=torch.int32, device=device)
+    prefill_alone_ms = device_ms(lambda: model.prefill(params, longest, SERVE_MAX_LEN), reps=5)
+    emb = params["embedding"]["tokens"]
+    weight_bytes = param_bytes - emb.numel() * emb.element_size() + \
+        SERVE_SLOTS * emb.shape[1] * emb.element_size()
+    state_bytes = 2 * sum(t.numel() * t.element_size() for t in _leaves(cache))  # read, write
+    bound_ms = (weight_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    prefill_bound_ms = max(weight_bytes / HBM_BYTES_PER_S,
+                           lm_ops(cfg, params, max(lengths)) / BF16_TENSOR_OPS_PER_S) * 1e3
+    step = statistics.median(step_ms)
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    print(f"[family] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {cfg.param_count()} parameters by "
+          f"param_count, {param_bytes} B in {cfg.param_dtype}; init {init_s:.2f} s")
+    print(f"[family] {cfg.name} prefill of {list(lengths)} tokens: "
+          f"{', '.join(f'{ms:.3f}' for ms in prefill_ms)} ms; {max(lengths)} tokens alone "
+          f"{prefill_alone_ms:.3f} ms by CUDA events (bound {prefill_bound_ms:.3f} ms); decode "
+          f"step median {step:.3f} ms over {FAMILY_STEPS} steps at {SERVE_SLOTS} slots (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}), "
+          f"{SERVE_SLOTS * FAMILY_STEPS / (sum(step_ms) / 1e3):.1f} tokens/s; bound "
+          f"{bound_ms:.3f} ms ({weight_bytes} weight B + {state_bytes} state B read and "
+          f"written at 3.35 TB/s), step/bound {step / bound_ms:.2f}; peak memory {peak} B")
+    out = {"arch": cfg.name, "param_count": cfg.param_count(), "param_bytes": param_bytes,
+           "init_s": init_s, "prompt_lengths": list(lengths), "prefill_ms": prefill_ms,
+           "prefill_alone_ms": prefill_alone_ms, "prefill_bound_ms": prefill_bound_ms,
+           "decode_ms": step_ms, "decode_step_ms": step,
+           "tokens_per_s": SERVE_SLOTS * FAMILY_STEPS / (sum(step_ms) / 1e3),
+           "decode_bound_ms": bound_ms, "weight_bytes": weight_bytes,
+           "state_bytes": state_bytes, "max_memory_allocated": peak}
+    del params, cache
+    return out
+
+
+def family_cache_checks(prompt: List[int], device) -> Dict[str, Any]:
+    """(c) The cache path against the full path in float32 (TF32 off), L=64:
+    rwkv6-3b at full width and depth, moonshot at full width with 12 of its
+    48 layers.  Each is gated where the reference's decode is consistent
+    with its full path (ROADMAP.md sections 3.8 and 3.9): RWKV's channel mix
+    without its token shift (``shift_mix`` 0), moonshot routed to one expert
+    with room for every token.  The published form is measured beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tokens = torch.as_tensor([prompt[:CACHE_L]], dtype=torch.int32, device=device)
+    out = {}
+    f32 = dict(param_dtype="float32", activation_dtype="float32")
+    for name in (RWKV_ARCH, FAMILY_SERVE_ARCH):
+        cfg = dataclasses.replace(get_config(name), **f32)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, n_layers=CACHE_CUT_LAYERS)
+        params = Model(cfg).init(torch.Generator(device).manual_seed(SEED))
+        published = _cache_check(Model(cfg), params, tokens, cfg.vocab_size)
+        if cfg.moe is not None:
+            gated_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, top_k=1, capacity_factor=float(cfg.moe.num_experts)))
+            what = "top-1 routing with room for every token"
+        else:
+            gated_cfg = cfg
+            for layer in params["stack"].values():
+                layer["cmix"]["shift_mix"].zero_()
+            what = "channel-mix shift_mix 0"
+        ratio, same = _cache_check(Model(gated_cfg), params, tokens, cfg.vocab_size)
+        print(f"[family] cache path against the full path, {name} in float32 (TF32 off), "
+              f"{cfg.n_layers} layers, L={CACHE_L}: {what}: max |dlogit| / max |logit| = "
+              f"{ratio:.3e} (limit {CACHE_REL:.0e}), argmax {'equal' if same else 'DIFFERS'}; as "
+              f"published: {published[0]:.3e}, argmax {'equal' if published[1] else 'differs'} "
+              "(not a limit: the reference's decode differs from its full path there)")
+        if not (ratio <= CACHE_REL and same):
+            raise AssertionError(f"family: {name}'s cache path disagrees with its full path")
+        out[name] = {"layers": cfg.n_layers, "L": CACHE_L, "gated": what, "max_rel_err": ratio,
+                     "argmax_equal": same, "published_max_rel_err": published[0],
+                     "published_argmax_equal": published[1], "limit": CACHE_REL}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_card_vs_cpu(name: str, prompt: List[int], device) -> Dict[str, Any]:
+    """(d) ``get_config(name).reduced()`` in float32 from one set of
+    CPU-made parameters: prefill of two prompts then four greedy decode
+    steps on the card and on the CPU; ids equal, logits within
+    ``CARD_CPU_REL`` of max |logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(name).reduced(param_dtype="float32", activation_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(SEED))
+    ids = torch.as_tensor([prompt[:17], prompt[17:34]], dtype=torch.int32) % cfg.vocab_size
+    runs = {}
+    for where in (device, torch.device("cpu")):
+        p = _tree_to(params, where)
+        logits, cache = model.prefill(p, ids.to(where), max_len=32)
+        calls, steps = [logits.cpu()], []
+        for i in range(4):
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            steps.append(tok.cpu().tolist())
+            logits, cache = model.decode_step(p, tok[:, None].to(torch.int32), cache, 17 + i)
+            calls.append(logits.cpu())
+        runs[where.type] = (steps, calls)
+    (got_ids, got), (want_ids, want) = runs[device.type], runs["cpu"]
+    worst = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+    print(f"[family] card against CPU, reduced {name} in float32 ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, period {[f'{s.mixer}/{s.ffn}' for s in cfg.period]}): "
+          f"max |dlogit| / max |logit| = {worst:.3e} (limit {CARD_CPU_REL:.0e}); ids "
+          f"{'equal' if got_ids == want_ids else 'DIFFER'}")
+    if worst > CARD_CPU_REL or got_ids != want_ids:
+        raise AssertionError(f"family: reduced {name} on the card disagrees with the CPU")
+    return {"max_rel_err": worst, "ids_equal": True, "limit": CARD_CPU_REL}
+
+
+def family_phase(docs, endpoints, prompt: List[int]) -> Dict[str, Any]:
+    """Phase 10: (a) moonshot served behind the gateway, (b) rwkv6-3b's
+    prefill and decode, (c) their cache paths in float32, (d) four reduced
+    families on the card against the CPU."""
+    from repro_torch.configs import get_config
+
+    device = torch.device("cuda")
+    requests = [(e, json.dumps(d)) for d, e in zip(docs[:SERVE_BURST], endpoints)]
+    moe = serve_full_width(get_config(FAMILY_SERVE_ARCH), requests, device,
+                           steps=FAMILY_STEPS, explain=True)
+    moe.pop("admitted_prompts")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv = rwkv_full_width(get_config(RWKV_ARCH), prompt, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = family_cache_checks(prompt, device)
+    cross = {name: family_card_vs_cpu(name, prompt, device) for name in FAMILY_CPU_ARCHS}
+    return {"serve_moe": moe, "rwkv": rwkv, "cache_vs_full": cache, "card_vs_cpu": cross}
 
 
 def run() -> int:
@@ -1401,11 +1784,19 @@ def run() -> int:
     kernels[0]["dense"] = hash_match_at_dense(dense_calls["hash_match"])
     kernels.append(assertion_eval_at_main(dense_calls["assertion_eval"]))
     serve = serve_phase(docs, endpoints, smi)
+    prompt = serve.pop("longest_prompt")
+    if len(prompt) < max(RWKV_PROMPTS):
+        raise AssertionError(f"the longest admitted prompt has {len(prompt)} tokens, "
+                             f"fewer than {max(RWKV_PROMPTS)}")
+    explain = explain_phase(docs, endpoints)
+    family = family_phase(docs, endpoints, prompt)
     for row in kernels:
         row["launches_by_path"] = {
             "main": main["launches"][row["name"]],
             **{f"registry_{k}": v["launches"][row["name"]] for k, v in registry.items()},
             "serve": serve["launches"][row["name"]],
+            "explain": explain["launches"][row["name"]],
+            "serve_moe": family["serve_moe"]["launches"][row["name"]],
         }
     kernels[-1]["launches"] = registry["dense"]["launches"]["assertion_eval"]
     kernels[0]["dense"]["launches"] = registry["dense"]["launches"]["hash_match"]
@@ -1419,6 +1810,8 @@ def run() -> int:
         "host_ms_by_phase": host, "registry": registry,
     }}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"explain": explain}))
+    print(json.dumps({"family": family}))
     print(json.dumps({"kernels": kernels, "timing_floor": floor}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,11 @@ The pipeline is the reference's:
 4. **Reduce** -- AND over nodes per document, plus the depth-budget and
    unroll-frontier ``decided`` flags.
 
+``explain_batch`` (DESIGN.md §12) re-runs the same CSR pipeline keeping the
+window intermediates and reduces each document to one first-failure pick
+on the device; ``core/explain.py`` maps the picks to ``FailureSite``s on
+the host.
+
 ``layout="dense"`` is the reference's full-matrix baseline: the depth loop
 runs all ``max_depth`` iterations with one ``hash_match`` per iteration
 over the unsorted property table (owner = the parent's location), and the
@@ -30,8 +35,7 @@ node against every row, reduced by row ownership and OR-group.  Both
 layouts give bit-identical ``(valid, decided, frontier)``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
-where the kernels' plain PyTorch versions run instead.  ``explain_batch``
-is not ported yet and raises.
+where the kernels' plain PyTorch versions run instead.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 from ..kernels import ops as kops
 from ..obs.profile import phase as _phase
 from ..obs.trace import span as _span, trace_point as _trace_point
+from .explain import KIND_CIRCUIT, FailureSite, resolve_site
 from .nodetypes import T_ARR as _T_ARR, T_OBJ as _T_OBJ
 from .outcomes import fault_hook_armed, fault_point
 from .tape import (
@@ -380,13 +385,82 @@ class BatchValidator:
         decided = in_depth & ~frontier & ok
         return valid, decided, frontier & ok
 
-    def explain_batch(self, table, schema_ids=None, *, docs=None):
-        """Batched first-failure attribution: not ported yet.
+    def explain_batch(
+        self, table, schema_ids=None, *, docs: Optional[Sequence[Any]] = None
+    ) -> List[Optional[FailureSite]]:
+        """Batched first-failure attribution (DESIGN.md §12).
 
-        Raises rather than returning nothing, so a caller that expects
-        ``FailureSite``s cannot mistake the gap for valid documents.
+        Returns one entry per document: a :class:`FailureSite` where the
+        batched pipeline attributes a failure, ``None`` where it finds
+        none (the document is valid -- callers gate on their own verdicts
+        and must not call this for undecided rows).  ``docs`` (the
+        original parsed documents, encode order) enables instance JSON
+        pointers; without them ``instance_path`` stays empty.
+
+        Tie-break contract: lowest BFS node first; within a node
+        assertion-row < missing-required < closed-object, and among
+        assertion rows the lowest row wins; structural failures beat
+        circuit failures anchored at the same node, and among circuits
+        the lowest circuit id wins.  A separate launch, so ``explain=False``
+        traffic never pays for it.
         """
-        raise NotImplementedError("explain_batch is not ported yet")
+        if self.layout != "csr":
+            raise NotImplementedError("explain_batch requires the csr layout")
+        B = table.batch
+        ids = self._normalize_ids(B, schema_ids)
+        if docs is not None and len(docs) != B:
+            raise ValueError(f"{len(docs)} docs for batch of {B}")
+        with _phase("executor.explain"), _span("executor.explain", batch=B):
+            cols = _table_columns(table, self.device)
+            out = _explain_batch(
+                cols,
+                torch.from_numpy(ids).to(self.device),
+                consts=self._consts,
+                max_depth=self.max_depth,
+                max_loc_depth=self.tape.max_loc_depth,
+                n_window=self.n_window,
+                k_cand=self.k_cand,
+                circuits=self._circuits,
+                n_circuits=self.n_circuits,
+            )
+            doc_key, bad_row, bad_loc, parent_loc, missing, root_fail, root_anchor = (
+                t.cpu().numpy() for t in out
+            )
+            # host half: merge each document's structural pick with its
+            # circuit roots' failures and map the winner to a site
+            roots = _circuit_roots(self._circuits, self.n_circuits)
+            sites: List[Optional[FailureSite]] = []
+            for b in range(B):
+                doc = docs[b] if docs is not None else None
+                skey = int(doc_key[b])  # structural pick: node*4 + kind
+                ckey, circ = _BIG, -1  # circuit pick: anchor*4 + KIND_CIRCUIT
+                for j, r in enumerate(roots):
+                    if root_fail[b, j]:
+                        k = max(int(root_anchor[b, j]), 0) * 4 + KIND_CIRCUIT
+                        if k < ckey:
+                            ckey, circ = k, r
+                if skey >= _BIG and ckey >= _BIG:
+                    sites.append(None)
+                elif skey <= ckey:  # structural wins ties at the same node
+                    sites.append(
+                        resolve_site(
+                            self.tape,
+                            kind=skey % 4,
+                            node=skey // 4,
+                            row=int(bad_row[b]),
+                            loc=int(bad_loc[b]),
+                            parent_loc=int(parent_loc[b]),
+                            missing_mask=int(missing[b]) & 0xFFFFFFFF,
+                            doc=doc,
+                        )
+                    )
+                else:
+                    sites.append(
+                        resolve_site(
+                            self.tape, kind=KIND_CIRCUIT, node=ckey // 4, circ=circ, doc=doc
+                        )
+                    )
+        return sites
 
     def seen_shapes(self) -> set:
         """Snapshot of the (B, max_nodes) launch shapes already run."""
@@ -619,12 +693,14 @@ def _segment_or_suffix(vals: torch.Tensor, grp: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def _assertions_csr(loc, node_cols, consts, *, n_window: int, n_circuits: int):
+def _assertions_csr(loc, node_cols, consts, *, n_window: int, n_circuits: int, detail=None):
     """Windowed assertion evaluation + segmented OR-group reduction.
 
     Returns ``(asrt_ok, passes, seg_any)``: the per-node verdict over
     *plain* rows, plus the raw window pass matrix and per-window segmented
     group OR for the circuit-leaf gathers (None without circuits).
+    ``detail`` (a dict, explain only) receives the per-window
+    intermediates, so the first-failure pick reuses them.
     """
     A = consts["asrt_op"].shape[0]
     dev = loc.device
@@ -657,6 +733,15 @@ def _assertions_csr(loc, node_cols, consts, *, n_window: int, n_circuits: int):
     is_start = (grp > 0) & torch.cat([first_col, grp[:, 1:] != grp[:, :-1]], dim=1)
     or_ok = torch.where(is_start & ~in_circ, seg_any, True).all(dim=1)
     asrt_ok = and_ok & or_ok
+    if detail is not None:
+        detail.update(
+            w_rows=w_rows,
+            passes=passes,
+            in_circ=in_circ,
+            is_and=is_and,
+            is_start=is_start,
+            seg_any=seg_any,
+        )
     if not n_circuits:
         return asrt_ok, None, None
     return asrt_ok, passes, seg_any
@@ -745,13 +830,14 @@ def _leaf_values(node_at, circuits, mats, cols, B: int, N: int):
     return out
 
 
-def _reduce_circuits(leaf_vals, present, circuits, *, n_circuits: int):
+def _reduce_circuits(leaf_vals, present, circuits, *, n_circuits: int, roots_out=None):
     """Bottom-up circuit reduce -> (B,) root conjunction.
 
     Children always have larger ids than their parent, so one descending
     pass evaluates the DAG in topological order.  The wiring is host numpy
     and the loop re-runs on every launch (the reference unrolls it once at
-    trace time).
+    trace time).  ``roots_out`` (a list, explain only) receives the (B, R)
+    gated root values.
     """
     kind = circuits["kind"]
     parent = circuits["parent"]
@@ -792,6 +878,12 @@ def _reduce_circuits(leaf_vals, present, circuits, *, n_circuits: int):
     ok = torch.ones(B, dtype=torch.bool, device=dev)
     for r in roots:
         ok = ok & vals[r]
+    if roots_out is not None:
+        roots_out.append(
+            torch.stack([vals[r] for r in roots], dim=1)
+            if roots
+            else torch.zeros((B, 0), dtype=torch.bool, device=dev)
+        )
     return ok
 
 
@@ -893,3 +985,120 @@ def _validate_batch(
     else:
         frontier = torch.zeros(B, dtype=torch.bool, device=dev)
     return valid, in_depth, frontier
+
+
+def _circuit_roots(circuits, n_circuits: int) -> List[int]:
+    """Root circuit ids in ascending order (compile-time)."""
+    parent = circuits["parent"]
+    return [c for c in range(n_circuits) if int(parent[c]) < 0]
+
+
+def _explain_batch(
+    cols,
+    schema_ids,
+    *,
+    consts,
+    max_depth: int,
+    max_loc_depth: int,
+    n_window: int,
+    k_cand: int,
+    circuits,
+    n_circuits: int,
+):
+    """Device half of batched first-failure attribution (DESIGN.md §12).
+
+    Re-runs the CSR validation pipeline keeping the per-window
+    intermediates, then reduces every document to ONE failure pick:
+
+    - per node, the lowest failing assertion row (a failed AND row fails
+      at its own row; a failed enum OR-group at its first window row);
+    - per document, a min over packed ``node*4 + kind`` keys, so the
+      lowest BFS node wins and, within a node, assertion (0) beats
+      missing-required (1) beats closed-object (2);
+    - circuit failures come back separately as per-root gated values and
+      the root owner's anchor node; the host merges them in as kind 3.
+
+    Returns ``(doc_key, bad_row, bad_loc, parent_loc, missing, root_fail,
+    root_anchor)``: small (B,)/(B, R) tensors.
+    """
+    loop_depth = min(max_depth, max_loc_depth + 1)
+    B, N = cols["node_type"].shape
+    BN = B * N
+    dev = cols["node_type"].device
+    member = schema_ids.to(torch.int32).repeat_interleave(N)  # (BN,)
+    loc, acquired = _propagate_locations(
+        cols, member, consts, layout="csr", loop_depth=loop_depth, k_cand=k_cand
+    )
+    node_type = cols["node_type"].reshape(BN)
+    is_pad = node_type == 0
+    tracked = loc >= 0
+    loc_safe = torch.where(tracked, loc, 0).long()
+    required_mask = torch.where(
+        tracked & (node_type == _T_OBJ), consts["loc_required_mask"][loc_safe], 0
+    )
+    required_ok = (acquired & required_mask) == required_mask
+
+    node_cols = {
+        "type": node_type,
+        "is_int": cols["is_int"].reshape(BN),
+        "num": cols["num"].reshape(BN),
+        "size": cols["size"].reshape(BN),
+        "acquired": acquired,
+        "str_hash": cols["str_hash"].reshape(BN, 8),
+        "str_prefix": cols["str_prefix"].reshape(BN, 2),
+    }
+    detail: Dict[str, Any] = {}
+    _assertions_csr(
+        loc, node_cols, consts, n_window=n_window, n_circuits=n_circuits, detail=detail
+    )
+
+    # per-node first failing plain assertion row (global row id)
+    fail_and = detail["is_and"] & ~detail["passes"]
+    fail_or = detail["is_start"] & ~detail["in_circ"] & ~detail["seg_any"]
+    row_masked = torch.where(fail_and | fail_or, detail["w_rows"], _BIG)
+    node_first_row = row_masked.amin(dim=1)  # (BN,)
+    has_row_fail = node_first_row < _BIG
+
+    req_fail = tracked & ~required_ok
+    closed_fail = loc == LOC_INVALID
+    node_fail = ~is_pad & (has_row_fail | req_fail | closed_fail)
+    kind = torch.where(has_row_fail, 0, torch.where(req_fail, 1, 2))
+
+    # packed min: lowest BFS node, then kind priority within the node
+    n_in_doc = torch.arange(BN, dtype=torch.int64, device=dev) % N
+    key = torch.where(node_fail, n_in_doc * 4 + kind, _BIG)
+    doc_key = key.reshape(B, N).amin(dim=1)  # (B,)
+
+    picked = doc_key < _BIG
+    node_pick = torch.where(picked, doc_key // 4, 0)
+    doc_base = torch.arange(B, dtype=torch.int64, device=dev) * N
+    chosen_flat = doc_base + node_pick
+    bad_row = torch.where(picked, node_first_row[chosen_flat], -1)
+    bad_loc = torch.where(picked, loc[chosen_flat], -1)
+    missing = torch.where(picked, (required_mask & ~acquired)[chosen_flat], 0)
+    par = cols["parent"].reshape(BN)[chosen_flat]  # (B,) in-document parent index
+    par_flat = torch.where(par >= 0, doc_base + par, 0)
+    parent_loc = torch.where(picked & (par >= 0), loc[par_flat], -1)
+
+    if n_circuits:
+        node_at = _circuit_anchors(loc, circuits, B, N)
+        leaf_vals = _leaf_values(
+            node_at,
+            circuits,
+            (detail["passes"], detail["seg_any"]),
+            (circuits["and_slots"], circuits["group_slots"]),
+            B,
+            N,
+        )
+        present = node_at[:, circuits["circ_ranks"]] >= 0  # (B, C)
+        roots_out: List[torch.Tensor] = []
+        _reduce_circuits(
+            leaf_vals, present, circuits, n_circuits=n_circuits, roots_out=roots_out
+        )
+        root_fail = ~roots_out[0]  # (B, R): gated root value False = fail
+        roots = _circuit_roots(circuits, n_circuits)
+        root_anchor = node_at[:, circuits["circ_ranks"][roots]]  # (B, R), -1 absent
+    else:
+        root_fail = torch.zeros((B, 0), dtype=torch.bool, device=dev)
+        root_anchor = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+    return doc_key, bad_row, bad_loc, parent_loc, missing, root_fail, root_anchor

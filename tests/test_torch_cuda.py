@@ -249,3 +249,36 @@ def test_serve_engine_cuda_equals_cpu(cuda):
     prompts = ["hello world", "hi", "a longer prompt than the others", "x" * 60]
     out = chip.card_vs_cpu(get_config("granite-3-8b"), prompts, cuda)
     assert out["max_rel_err"] <= chip.CARD_CPU_REL and len(out["ids"]) == 4
+
+
+def test_explain_cuda_equals_cpu(cuda):
+    """Batched explain of the gateway mix on the card equals the CPU's, site
+    for site, directly and through registry admission."""
+    import dataclasses
+
+    linked, docs, ids, endpoints = _gateway_batch(300)
+    table = encode_batch(docs, max_nodes=64)
+    sites = [BatchValidator(linked, device=d).explain_batch(table, ids, docs=docs)
+             for d in ("cuda", "cpu")]
+    rows = [[None if s is None else dataclasses.astuple(s) for s in run] for run in sites]
+    assert rows[0] == rows[1] and any(s is not None for s in rows[0])
+    verdicts = []
+    for device in ("cuda", "cpu"):
+        reg = SchemaRegistry(device=device)
+        for name, schema in GATEWAY_SCHEMAS.items():
+            reg.register(name, schema)
+        got, _ = reg.admit_mixed_ex(docs, endpoints, max_nodes=64, explain=True)
+        verdicts.append([(v.outcome, v.reason, None if v.site is None
+                          else dataclasses.astuple(v.site)) for v in got])
+    assert verdicts[0] == verdicts[1]
+    assert any(site is not None for _, _, site in verdicts[0])
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "rwkv6-3b", "jamba-1.5-large-398b"])
+def test_family_cuda_equals_cpu(cuda, arch):
+    """Reduced float32 logits of the MoE and SSM families on the card against
+    the CPU, from one set of CPU-made parameters (chip_smoke's phase 10 (d):
+    ids equal, logits within its 1e-4, else it raises)."""
+    chip = _load_chip_smoke()
+    out = chip.family_card_vs_cpu(arch, list(range(1, 40)), cuda)
+    assert out["max_rel_err"] <= chip.CARD_CPU_REL

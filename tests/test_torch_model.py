@@ -317,13 +317,3 @@ def test_params_from_jax_round_trip_is_bit_exact():
             # widening to float32 is exact
             np.testing.assert_array_equal(wide[name].numpy(), leaf.astype(np.float32))
 
-
-def test_mixers_and_ffns_not_ported_raise():
-    from repro_torch.models import transformer as T
-
-    for arch in ("jamba-1.5-large-398b", "rwkv6-3b", "moonshot-v1-16b-a3b"):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            Model(cfg).init(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            T.init_cache(cfg, 1, 8, device="cpu")

@@ -54,6 +54,7 @@ COPIED = [
     # the serve slice: fault injection, events and SLOs, the LM's configs
     "serve/faults.py", "serve/__init__.py", "obs/events.py", "obs/slo.py", "obs/__init__.py",
     "models/__init__.py",
+    "models/flops.py",
     *(f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))),
 ]
 

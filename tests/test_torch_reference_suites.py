@@ -1,5 +1,5 @@
-"""The JAX package's own serve, scheduler, fault-containment and
-event/SLO suites, run against the port.
+"""The JAX package's own serve, scheduler, fault-containment, event/SLO,
+batched-explain and observability suites, run against the port.
 
 Each suite is the reference test file's text with declared substitutions:
 imports from ``repro_torch`` instead of ``repro``, ``device="cpu"`` where
@@ -70,12 +70,26 @@ SUITES = {
         (*_GENERATOR, 1),
         ("        **kw,\n    )\n", '        device="cpu",\n        **kw,\n    )\n', 1),
     ],
+    "test_batched_explain.py": [
+        (*_IMPORTS, 7),
+        ("use_pallas=False", 'device="cpu"', 7),
+    ],
+    "test_observability.py": [
+        (*_IMPORTS, 9),
+        ("    import jax\n", "    import torch\n", 1),
+        (*_GENERATOR, 1),
+        ("use_pallas=False", 'device="cpu"', 2),
+        ("default_max_tokens=4)\n    )", 'default_max_tokens=4), device="cpu"\n    )', 1),
+        ("AdmissionController(SCHEMA)", 'AdmissionController(SCHEMA, device="cpu")', 1),
+    ],
 }
 
 _serve = load_suite("test_pipeline_serve.py", SUITES["test_pipeline_serve.py"])
 _sched = load_suite("test_scheduler.py", SUITES["test_scheduler.py"])
 _fault = load_suite("test_fault_containment.py", SUITES["test_fault_containment.py"])
 _events = load_suite("test_profile.py", SUITES["test_profile.py"])
+_explain = load_suite("test_batched_explain.py", SUITES["test_batched_explain.py"])
+_obs = load_suite("test_observability.py", SUITES["test_observability.py"])
 
 # test_pipeline_serve.py: admission and the serving engine
 TestAdmission = _serve.TestAdmission
@@ -106,10 +120,23 @@ TestEventLog = _events.TestEventLog
 TestSLO = _events.TestSLO
 TestEngineIntegration = _events.TestEngineIntegration
 
+# test_batched_explain.py: every class (differential attribution against the
+# sequential Validator, the tie-breaks, instance pointers, the registry's
+# explain plumbing)
+TestDifferentialAttribution = _explain.TestDifferentialAttribution
+TestTieBreak = _explain.TestTieBreak
+TestNodePointer = _explain.TestNodePointer
+TestRegistryExplainPlumbing = _explain.TestRegistryExplainPlumbing
+
+# test_observability.py: the engine classes (stats reconciliation, explain=True
+# included, and the serving metrics surface)
+TestStatsReconciliation = _obs.TestStatsReconciliation
+TestServingMetricsSurface = _obs.TestServingMetricsSurface
+
 
 def test_suites_import_only_the_port():
     """No adapted suite reaches into the JAX package's code."""
-    for module in (_serve, _sched, _fault, _events):
+    for module in (_serve, _sched, _fault, _events, _explain, _obs):
         for value in vars(module).values():
             owner = getattr(value, "__module__", "") or ""
             assert owner.split(".")[0] != "repro", (module.__name__, value)

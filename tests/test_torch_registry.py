@@ -9,6 +9,7 @@ source: the port's file must equal the reference's text with exactly the
 declared substitutions.
 """
 
+import dataclasses
 import random
 import warnings
 from pathlib import Path
@@ -29,16 +30,9 @@ from test_torch_batch_executor import _load_chip_smoke
 
 ROOT = Path(__file__).resolve().parents[1]
 
-_EXPLAIN_RAISES = (
-    "        if explain:\n"
-    "            # batched first-failure attribution is not ported yet: fail\n"
-    "            # loudly instead of returning verdicts without their sites\n"
-    '            raise NotImplementedError("explain_batch is not ported yet")\n'
-)
-
 # each adapted module's only differences from the reference's text.  The
 # registry and the pipeline: ``use_pallas`` becomes ``device`` (cuda unless
-# told otherwise), and batched explain raises instead of being dropped
+# told otherwise)
 ADAPTED = {
     "registry/registry.py": [
         ("from ..core.batch_executor import BatchValidator\n",
@@ -51,8 +45,6 @@ ADAPTED = {
          "                        device=self.device,\n"),
         ("                    use_pallas=self.use_pallas,\n",
          "                    device=self.device,\n"),
-        ('        nothing -- the fast path is unchanged.\n        """\n',
-         '        nothing -- the fast path is unchanged.\n        """\n' + _EXPLAIN_RAISES),
     ],
     "data/pipeline.py": [
         ("``use_pallas``/``layout``/``max_depth`` configure the",
@@ -60,9 +52,6 @@ ADAPTED = {
         ("        use_pallas: bool = False,\n", "        device=None,\n"),
         ("                use_pallas=use_pallas, layout=layout, max_depth=max_depth\n",
          "                device=device, layout=layout, max_depth=max_depth\n"),
-        ('        opts INVALID verdicts into first-failure attribution."""\n',
-         '        opts INVALID verdicts into first-failure attribution."""\n'
-         + _EXPLAIN_RAISES),
     ],
     # the two registry CLIs: the registry's device is an argument
     "analysis/lint_tape.py": [
@@ -244,7 +233,10 @@ def _stream(n: int, seed: int):
 
 
 def _verdicts(vs):
-    return [(v.outcome.name, v.valid, v.reason, v.engine, v.site) for v in vs]
+    """Verdicts as plain tuples (the two packages' ``FailureSite`` classes
+    differ, their fields must not)."""
+    return [(v.outcome.name, v.valid, v.reason, v.engine,
+             None if v.site is None else dataclasses.astuple(v.site)) for v in vs]
 
 
 def _counts(c):
@@ -325,16 +317,34 @@ def test_injected_launch_fault_matches_the_reference(layout):
     assert port.group_stats() == ref.group_stats()
 
 
-def test_explain_raises_before_any_work():
-    port, _ = _registries("csr")
-    ctrl = AdmissionController(registry=port, endpoint="complete")
-    with pytest.raises(NotImplementedError, match="explain_batch is not ported yet"):
-        port.admit_mixed_ex([{"prompt": "x"}], ["complete"], explain=True)
-    with pytest.raises(NotImplementedError, match="explain_batch is not ported yet"):
-        ctrl.admit_ex([{"prompt": "x"}], explain=True)
-    assert ctrl.stats.snapshot()["seen"] == 0
-    with pytest.raises(NotImplementedError, match="explain_batch is not ported yet"):
-        port.groups()[0].validator.explain_batch(None)
+def test_dense_explain_raises_and_the_registry_gives_empty_sites():
+    """As the reference: ``explain_batch`` needs the csr layout, and the
+    registry's best-effort attribution turns that error into empty sites,
+    so dense INVALID verdicts carry no site and are otherwise unchanged."""
+    from repro.data.doc_table import encode_batch as ref_encode
+    from repro_torch.data.doc_table import encode_batch
+
+    port, ref = _registries("dense")
+    group = port.groups()[0]
+    ids = [0, 0]
+    with pytest.raises(NotImplementedError, match="explain_batch requires the csr layout"):
+        group.validator.explain_batch(encode_batch([{}, {}], max_nodes=8), ids)
+    with pytest.raises(NotImplementedError, match="explain_batch requires the csr layout"):
+        ref.groups()[0].validator.explain_batch(ref_encode([{}, {}], max_nodes=8), ids)
+    docs, endpoints = _stream(48, seed=3)
+    got, counts = port.admit_mixed_ex(docs, endpoints, max_nodes=64, explain=True)
+    want, rcounts = ref.admit_mixed_ex(docs, endpoints, max_nodes=64, explain=True)
+    assert _verdicts(got) == _verdicts(want)
+    assert _counts(counts) == _counts(rcounts)
+    plain, _ = port.admit_mixed_ex(docs, endpoints, max_nodes=64)
+    batched_invalid = [v for v in got if v.engine == "batched" and v.outcome.name == "INVALID"]
+    assert batched_invalid and all(v.site is None for v in batched_invalid)
+    batched = [i for i, v in enumerate(got) if v.engine == "batched"]
+    assert [_verdicts(got)[i] for i in batched] == [_verdicts(plain)[i] for i in batched]
+    ctrl = AdmissionController(registry=port, endpoint="complete", batch_max_nodes=64)
+    rctrl = RefController(registry=ref, endpoint="complete", batch_max_nodes=64)
+    assert _verdicts(ctrl.admit_ex(docs, endpoints, explain=True)) == _verdicts(
+        rctrl.admit_ex(docs, endpoints, explain=True))
 
 
 def test_registry_defaults_to_cuda_and_raises_without_it(monkeypatch):
