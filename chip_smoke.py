@@ -76,15 +76,33 @@ Phases, each printed on its own lines:
    channel mix without its token shift, moonshot routed to one expert with
    room for every token; the published forms are measured beside them);
    (d) reduced moonshot, arctic, jamba and rwkv6 in float32 on the card
-   against the CPU: ids equal, logits within 1e-4.
+   against the CPU: ids equal, logits within 1e-4;
+11. train: (a) rwkv6-3b at its published widths and depth (bf16 parameters,
+   float32 Adam moments) trained by the driver's components: the driver's
+   corpus through ``ShardedPipeline`` admission on the card, ``make_train_step``
+   (remat on, ``donate=False``) under ``TrainSupervisor``, batch 4 x seq 512,
+   one warm-up and 8 timed steps: step ms, tokens/s, peak memory, each step's
+   loss and grad norm (finite), the FLOP bound (6 N T at 989 TFLOP/s) and the
+   update's byte bound, the update alone by CUDA events, the device-busy
+   share of one more step under the profiler; every
+   ``hash_match`` and ``assertion_eval_window`` call of the admissions held
+   against its plain version and every batch the pipeline yielded against a
+   ``device="cpu"`` pipeline's; (b) reduced granite, moonshot, jamba and
+   rwkv6 in float32: 3 train steps on the card and on the CPU from one set
+   of CPU-made parameters, loss and grad norm within 1e-4 relative a step,
+   parameters within 2 * sum lr; (c) a checkpoint of reduced granite (bf16
+   parameters, float32 moments) restored onto the card bit for bit, the
+   supervisor's NaN rollback and resume, and ``python -m
+   repro_torch.launch.train --arch granite-3-8b --steps 4 --device cuda``.
 
 Any mismatch or exception exits non-zero.  The last lines are the serve,
-explain and family JSON lines, the kernels JSON line (``launches`` counts the
+explain, family and train JSON lines, the kernels JSON line (``launches`` counts the
 path each kernel serves: the CSR main
 path for the first two, the dense admission for ``assertion_eval``;
 ``launches_by_path`` has every path's count: the serve burst's under
 ``serve``, phase 9's 10 timed explain admissions under ``explain``, the
-moonshot burst under ``serve_moe``; ``hash_match``'s ``dense``
+moonshot burst under ``serve_moe``, phase 11's training run under
+``train``; ``hash_match``'s ``dense``
 holds its time, bound and launches in the dense admission,
 ``assertion_eval_window``'s ``admission`` the same in the csr admission),
 the card's name and power limit, and
@@ -98,12 +116,15 @@ from __future__ import annotations
 import collections
 import dataclasses
 import gc
+import itertools
 import json
+import os
 import random
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Tuple
@@ -141,6 +162,18 @@ RWKV_PROMPTS = (17, 64, 128)  # lengths the reference's 64-token chunk rule acce
 CACHE_L = 64
 CACHE_CUT_LAYERS = 12  # moonshot's depth in float32 for the cache check
 FAMILY_CPU_ARCHS = ("moonshot-v1-16b-a3b", "arctic-480b", "jamba-1.5-large-398b", "rwkv6-3b")
+# phase 11: the training path
+TRAIN_ARCH = "rwkv6-3b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 512
+TRAIN_WARMUP = 1  # steps before the timed ones
+TRAIN_TIMED = 8
+TRAIN_DRIVER_STEPS = 3  # launch/train.py itself at full width
+TRAIN_CPU_ARCHS = ("granite-3-8b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b", "rwkv6-3b")
+TRAIN_CPU_STEPS = 3
+TRAIN_REL = 1e-4  # card against CPU, reduced, float32: loss and grad norm a step
+TRAIN_PARAM_ABS = 1e-4  # card against CPU: parameters after the steps
+TRAIN_PARAM_FLIPS = 1e-5  # the share of elements that may exceed it (sign flips)
 
 # the gateway's endpoint mix (benchmarks/registry.py): completions dominate,
 # moderation is the tail; charge is the tagged-union endpoint with circuits
@@ -1711,6 +1744,394 @@ def family_phase(docs, endpoints, prompt: List[int]) -> Dict[str, Any]:
     return {"serve_moe": moe, "rwkv": rwkv, "cache_vs_full": cache, "card_vs_cpu": cross}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the training path
+# ---------------------------------------------------------------------------
+
+
+def driver_corpus():
+    """The training driver's records and dataset schema
+    (src/repro_torch/launch/train.py): JSON documents of the synthetic
+    corpus, each wrapped as a {"text": ...} record."""
+    from repro_torch.data.corpus import make_dataset
+
+    ds = make_dataset("driver-corpus", 2000, 6.0, 350, seed=11)
+    records = [{"text": json.dumps(d)} for d in ds.documents]
+    schema = {"type": "object", "required": ["text"],
+              "properties": {"text": {"type": "string", "minLength": 4}}}
+    return schema, records
+
+
+def _driver_data(cfg, b, device) -> Dict[str, torch.Tensor]:
+    """A pipeline batch as the driver hands it to the step."""
+    return {"tokens": torch.as_tensor(b["tokens"] % cfg.vocab_size, device=device),
+            "labels": torch.as_tensor(b["labels"] % cfg.vocab_size, device=device)}
+
+
+def train_full_width(cfg, device, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                     steps: int = TRAIN_WARMUP + TRAIN_TIMED) -> Dict[str, Any]:
+    """(a) The driver's components at ``cfg``'s published widths and depth:
+    ``ShardedPipeline`` admission on ``device``, ``make_train_step``
+    (remat on, ``donate=False``) and ``TrainSupervisor`` with
+    ``checkpoint_every=0``, for ``steps`` steps (the first a warm-up).
+    Every admission kernel call is held against its plain version and every
+    batch the pipeline yielded against a CPU pipeline's."""
+    from repro_torch.data.pipeline import ShardedPipeline
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_tape_cuda
+    from repro_torch.kernels.hash_match import hash_match_cuda
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.supervisor import SupervisorConfig, TrainSupervisor
+    from repro_torch.train.train_step import make_train_step
+
+    schema, records = driver_corpus()
+    model = Model(cfg)
+    ocfg = opt.OptimizerConfig(learning_rate=1e-3, warmup_steps=5, total_steps=steps,
+                               state_dtype=cfg.optimizer_state_dtype)
+    step = make_train_step(model, ocfg, batch=batch, device=device, donate=False)
+    pipe = ShardedPipeline(schema, records, seq_len=seq, batch_size=batch, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device).manual_seed(SEED))
+    opt_state = opt.init(ocfg, params)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    leaves, moments = _leaves(params), _leaves(opt_state.m)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    state_bytes = 2 * sum(t.numel() * t.element_size() for t in moments)
+    # the update reads each parameter, its gradient and both moments and
+    # writes the parameter and both moments
+    update_bytes = sum(p.numel() * (3 * p.element_size() + 4 * m.element_size())
+                       for p, m in zip(leaves, moments))
+    del leaves, moments
+
+    pulled, metrics = [], []
+
+    def wrapped(p, s, b):
+        out = step(p, s, _driver_data(cfg, b, device))
+        metrics.append(out[2])
+        return out
+
+    def pipeline_batches():
+        for b in itertools.cycle(pipe.batches()):
+            pulled.append(b)
+            yield b
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = TrainSupervisor(wrapped, CheckpointManager(tmp, keep=2, device=device),
+                              SupervisorConfig(checkpoint_every=0))
+        # as the driver does: no reference to the first state is kept, so
+        # run() frees it after the first step (30.6 GB at full width, which
+        # beside the step's own trees would not fit on the card)
+        result, first = {}, {"params": params, "opt_state": opt_state}
+        del params, opt_state
+        zero_launch_counts()
+        captured = capture_kernel_inputs(lambda: result.update(zip(
+            ("params", "opt_state", "history"),
+            sup.run(first.pop("params"), first.pop("opt_state"), pipeline_batches(),
+                    num_steps=steps))))
+        launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
+    if launches["hash_match"] < 1 or launches["assertion_eval_window"] < 1:
+        raise AssertionError(f"train admission launched no CSR kernel: {launches}")
+    for args in captured["hash_match"]:
+        _check_equal("hash_match in train admission", hash_match_cuda(*args),
+                     ref.hash_match_ref(*args))
+    for args in captured["assertion_eval_window"]:
+        _check_equal("assertion_eval_window in train admission",
+                     assertion_eval_window_tape_cuda(*args),
+                     ref.assertion_eval_window_tape_ref(*args))
+
+    # the same records through a pipeline on the CPU
+    cpu_pipe = ShardedPipeline(schema, records, seq_len=seq, batch_size=batch, device="cpu")
+    want = list(itertools.islice(cpu_pipe.batches(), len(pulled)))
+    for i, (got, exp) in enumerate(zip(pulled, want)):
+        for key in ("tokens", "labels"):
+            if got[key].dtype != exp[key].dtype or not np.array_equal(got[key], exp[key]):
+                raise AssertionError(f"train: batch {i}'s {key} differ from the CPU pipeline's")
+    stats = {k: getattr(pipe.admission.stats, k) for k in ("admitted", "rejected")}
+    cpu_stats = {k: getattr(cpu_pipe.admission.stats, k) for k in ("admitted", "rejected")}
+    if len(want) != len(pulled) or stats != cpu_stats:
+        raise AssertionError(f"train: admission {stats} against the CPU's {cpu_stats}")
+
+    hist = result["history"]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    lrs = [float(m["lr"]) for m in metrics]
+    if len(hist) != steps or any(r.rolled_back or r.retried for r in hist):
+        raise AssertionError(f"train: {len(hist)} steps, rolled back or retried: {hist}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"train: non-finite loss or grad norm: {losses} {norms}")
+    step_ms = [r.seconds * 1e3 for r in hist]
+    timed = step_ms[TRAIN_WARMUP:]
+    median = statistics.median(timed)
+    tokens = batch * seq
+
+    # the update alone by CUDA events (the parameters stand in for gradients
+    # of their shapes and dtypes), and one more step under the profiler:
+    # the device's share of an eager step
+    new_params, new_state = result.pop("params"), result.pop("opt_state")
+    update_ms, step_profile = None, None
+    if device.type == "cuda":
+        update_ms = device_ms(lambda: opt.update(ocfg, new_params, new_state, new_params), reps=3)
+        data = _driver_data(cfg, pulled[-1], device)
+        step_profile = profile(lambda: step(new_params, new_state, data), "train step")
+    del new_params, new_state, result
+    flops_ms = 6 * cfg.param_count() * tokens / BF16_TENSOR_OPS_PER_S * 1e3
+    update_bound_ms = update_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[train] {cfg.name} at full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {cfg.param_count()} parameters by "
+          f"param_count, {n_params} tensor elements, {param_bytes} B in {cfg.param_dtype}, "
+          f"Adam moments {state_bytes} B in {cfg.optimizer_state_dtype}; init {init_s:.2f} s")
+    print(f"[train] batch {batch} x seq {seq} = {tokens} tokens a step, remat on, "
+          f"donate=False: {len(pulled)} pipeline batches ({stats['admitted']} records "
+          f"admitted, {stats['rejected']} rejected), equal to a CPU pipeline's; kernel "
+          f"launches {launches}, every call equal to its plain version")
+    print(f"[train] step ms: {', '.join(f'{ms:.1f}' for ms in step_ms)} (first a warm-up); "
+          f"median {median:.1f} ms over {len(timed)} steps, {tokens / (median / 1e3):.1f} "
+          f"tokens/s; peak memory {peak} B")
+    print(f"[train] loss {', '.join(f'{x:.4f}' for x in losses)}; grad norm "
+          f"{', '.join(f'{x:.4f}' for x in norms)}")
+    print(f"[train] bounds: model FLOPs 6*N*T = {6 * cfg.param_count() * tokens:.4e} at "
+          f"989 TFLOP/s = {flops_ms:.3f} ms; the update's {update_bytes} B at 3.35 TB/s = "
+          f"{update_bound_ms:.3f} ms; the update alone "
+          f"{'not measured' if update_ms is None else f'{update_ms:.3f} ms'} by CUDA events; "
+          f"step / FLOP bound {median / flops_ms:.2f}")
+    return {"arch": cfg.name, "param_count": cfg.param_count(), "param_bytes": param_bytes,
+            "moment_bytes": state_bytes, "param_dtype": cfg.param_dtype,
+            "state_dtype": cfg.optimizer_state_dtype, "init_s": init_s, "batch": batch,
+            "seq": seq, "tokens_per_step": tokens, "remat": True, "donate": False,
+            "steps": steps, "warmup_steps": TRAIN_WARMUP, "step_ms": step_ms,
+            "median_step_ms": median, "tokens_per_s": tokens / (median / 1e3),
+            "loss": losses, "grad_norm": norms, "lr": lrs, "max_memory_allocated": peak,
+            "flops_bound_ms": flops_ms, "update_bytes": update_bytes,
+            "update_bound_ms": update_bound_ms, "update_ms": update_ms,
+            "step_profile": step_profile,
+            "pipeline_batches": len(pulled), "admission": stats, "launches": launches}
+
+
+def train_card_vs_cpu(name: str, device) -> Dict[str, Any]:
+    """(b) ``get_config(name).reduced()`` in float32 (TF32 off) from one set
+    of CPU-made parameters: ``TRAIN_CPU_STEPS`` steps of ``make_train_step``
+    on the card and on the CPU.  Per step the loss and the grad norm agree
+    within ``TRAIN_REL``.  The parameters after the steps agree within
+    ``TRAIN_PARAM_ABS``, about a third of the last step's lr, so that a
+    last update with its lr halved or dropped fails (the builders' runs read
+    at most 8.8e-6).  Only a near-zero gradient whose sign differs between
+    the devices may exceed it: Adam's first steps move an element by
+    lr * |m_hat / sqrt(v_hat)|, at most 1 in the first three steps at beta1
+    0.9, beta2 0.95, so such an element moves by up to 2 * lr more on one
+    device.  At most ``TRAIN_PARAM_FLIPS`` of the elements may do so, each
+    within 2 * sum of the steps' lr."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(name).reduced(param_dtype="float32", activation_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(SEED))
+    ocfg = opt.OptimizerConfig(warmup_steps=2, total_steps=10,
+                               state_dtype=cfg.optimizer_state_dtype)
+    rng = np.random.default_rng(SEED)
+    tokens = [rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+              for _ in range(TRAIN_CPU_STEPS)]
+    runs = {}
+    for where in (device, torch.device("cpu")):
+        p = _tree_to(params, where)
+        s = opt.init(ocfg, p)
+        step = make_train_step(model, ocfg, batch=2, device=where, donate=False)
+        seen = []
+        for t in tokens:
+            labels = np.roll(t, -1, axis=1)
+            p, s, m = step(p, s, {"tokens": t, "labels": labels})
+            seen.append({k: float(v) for k, v in m.items()})
+        runs[where.type] = (seen, [leaf.cpu() for leaf in _leaves(p)])
+    (got, got_p), (want, want_p) = runs[device.type], runs["cpu"]
+    worst = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got, want)
+                for k in ("loss", "grad_norm"))
+    flip_tol = 2 * sum(m["lr"] for m in want)
+    diffs = [(a - b).abs() for a, b in zip(got_p, want_p)]
+    n_elems = sum(d.numel() for d in diffs)
+    n_over = sum(int((d > TRAIN_PARAM_ABS).sum()) for d in diffs)
+    param_err = max(float(d.max()) for d in diffs)
+    # the largest difference apart from the sign flips the limit allows
+    within = max(float(torch.where(d > TRAIN_PARAM_ABS, 0.0, d).max()) for d in diffs)
+    print(f"[train] card against CPU, reduced {name} in float32 ({cfg.n_layers} layers, "
+          f"period {[f'{s.mixer}/{s.ffn}' for s in cfg.period]}, moments in "
+          f"{cfg.optimizer_state_dtype}), {TRAIN_CPU_STEPS} steps: loss "
+          f"{[round(m['loss'], 6) for m in got]}; max relative loss / grad-norm difference "
+          f"{worst:.3e} (limit {TRAIN_REL:.0e}); max |dparam| {within:.3e} (limit "
+          f"{TRAIN_PARAM_ABS:.0e}) on all but {n_over} of {n_elems} elements (at most "
+          f"{TRAIN_PARAM_FLIPS:.0e} of them, each within 2 * sum lr = {flip_tol:.3e}: "
+          f"max {param_err:.3e})")
+    if (worst > TRAIN_REL or n_over > TRAIN_PARAM_FLIPS * n_elems
+            or param_err > flip_tol):
+        raise AssertionError(f"train: reduced {name} on the card disagrees with the CPU")
+    return {"max_rel_err": worst, "limit": TRAIN_REL, "max_param_err": param_err,
+            "param_limit": TRAIN_PARAM_ABS, "params_over_limit": n_over,
+            "param_elements": n_elems, "flip_limit": flip_tol,
+            "loss": [m["loss"] for m in got]}
+
+
+def train_drills(device) -> Dict[str, Any]:
+    """(c) On the card, reduced granite-3-8b (bf16 parameters, float32
+    moments): a checkpoint saved and restored onto the card bit for bit;
+    the supervisor's NaN rollback and its resume from a checkpoint; the
+    the step with ``donate=True`` against ``donate=False``; the driver
+    ``python -m repro_torch.launch.train`` as a subprocess."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import tree as tree_util
+    from repro_torch.train.supervisor import SupervisorConfig, TrainSupervisor
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(SERVE_ARCH).reduced()
+    model = Model(cfg)
+    ocfg = opt.OptimizerConfig(warmup_steps=2, total_steps=50)
+    step = make_train_step(model, ocfg, batch=2, device=device, donate=False, remat=False)
+    params = model.init(torch.Generator(device).manual_seed(SEED))
+    state = opt.init(ocfg, params)
+
+    def batch(i):
+        t = np.random.default_rng(i).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        return {"tokens": torch.as_tensor(t, device=device),
+                "labels": torch.as_tensor(t, device=device)}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # save -> restore onto the card, bit for bit (moments after one step)
+        params, state, _ = step(params, state, batch(0))
+        bundle = {"params": params, "opt_state": state}
+        mgr = ckpt.CheckpointManager(tmp / "roundtrip", device=device)  # async save
+        mgr.save(1, bundle)
+        mgr.wait()
+        restored_step, restored = mgr.restore(bundle)  # new tensors, read from disk
+        got = _leaves(restored["params"]) + [restored["opt_state"].step] + \
+            _leaves(restored["opt_state"].m) + _leaves(restored["opt_state"].v)
+        want = _leaves(params) + [state.step] + _leaves(state.m) + _leaves(state.v)
+        if restored_step != 1 or not all(
+                a.device.type == device.type and a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(got, want)):
+            raise AssertionError("train: the checkpoint did not restore bit for bit onto the card")
+        files = sorted(p.name for p in (tmp / "roundtrip" / "step_0000000001").iterdir())
+        out["checkpoint"] = {"leaves": len(got), "bytes": sum(
+            (tmp / "roundtrip" / "step_0000000001" / f).stat().st_size for f in files),
+            "compressed": any(f.endswith(".zst") for f in files)}
+        print(f"[train] checkpoint of reduced {SERVE_ARCH} ({cfg.param_dtype} parameters, "
+              f"{cfg.optimizer_state_dtype} moments): {len(got)} leaves, "
+              f"{out['checkpoint']['bytes']} B on disk "
+              f"({'zstd' if out['checkpoint']['compressed'] else 'uncompressed'}), restored onto "
+              "the card bit for bit")
+
+        # NaN rollback: the second step's loss is poisoned; the supervisor
+        # reloads the step-0 checkpoint and skips that batch
+        mgr = ckpt.CheckpointManager(tmp / "nan", async_save=False, device=device)
+        mgr.save(0, bundle)
+        calls = {"n": 0}
+
+        def poisoned(p, s, b):
+            calls["n"] += 1
+            new_p, new_s, m = step(p, s, b)
+            if calls["n"] == 2:
+                m = dict(m, loss=torch.tensor(float("nan"), device=device))
+            return new_p, new_s, m
+
+        sup = TrainSupervisor(poisoned, mgr, SupervisorConfig(checkpoint_every=0))
+        p, s, hist = sup.run(params, state, iter([batch(i) for i in range(4)]), num_steps=4)
+        rolled = [r.rolled_back for r in hist]
+        if rolled != [False, True, False, False] or not all(
+                bool(torch.isfinite(t).all()) for t in _leaves(p)):
+            raise AssertionError(f"train: NaN rollback went wrong: {rolled}")
+        # resume: a run that checkpoints every 2 steps, then a new supervisor
+        mgr = ckpt.CheckpointManager(tmp / "resume", async_save=False, device=device)
+        sup = TrainSupervisor(step, mgr, SupervisorConfig(checkpoint_every=2))
+        p, s, _ = sup.run(params, state, iter([batch(i) for i in range(4)]), num_steps=4)
+        start, p2, s2 = TrainSupervisor(step, mgr, SupervisorConfig()).resume_or_init(
+            params, state)
+        if start != 4 or int(s2.step) != int(s.step) or not all(
+                torch.equal(a, b) for a, b in zip(_leaves(p2), _leaves(p))):
+            raise AssertionError(f"train: resume from step {start} differs from the run")
+        out["rollback"] = {"rolled_back": rolled, "resumed_step": start}
+        print(f"[train] supervisor on the card: NaN at the second step rolled back "
+              f"({rolled}); a new supervisor resumed at step {start}, equal to the run")
+
+        # donate=True, the reference's default: the step writes into the
+        # tensors it is given, bit for bit what donate=False returns fresh
+        donated = make_train_step(model, ocfg, batch=2, device=device, donate=True,
+                                  remat=False)
+        kept_p, kept_s, kept_m = step(params, state, batch(1))
+        given_p, given_s = tree_util.tree_map(torch.clone, (params, state))
+        given = tree_util.leaves((given_p, given_s))
+        don_p, don_s, don_m = donated(given_p, given_s, batch(1))
+        got, want = tree_util.leaves((don_p, don_s)), tree_util.leaves((kept_p, kept_s))
+        if not (all(a is b for a, b in zip(got, given))
+                and all(torch.equal(a, b) for a, b in zip(got, want))
+                and all(torch.equal(don_m[k], kept_m[k]) for k in kept_m)):
+            raise AssertionError("train: donate=True differs from donate=False on the card")
+        out["donate"] = {"leaves": len(got), "bit_equal": True}
+        print(f"[train] donate=True on the card: {len(got)} leaves written in place, bit for "
+              "bit equal to donate=False's")
+
+        # the driver as a user runs it
+        out["driver"] = run_driver(["--arch", SERVE_ARCH, "--steps", "4"], device,
+                                   tmp / "driver")
+    return out
+
+
+def run_driver(args: List[str], device, ckpt_dir: Path) -> Dict[str, Any]:
+    """``python -m repro_torch.launch.train`` with ``args`` on ``device``, as
+    a user runs it; it must exit 0 and print its loss line, finite."""
+    argv = [sys.executable, "-m", "repro_torch.launch.train", *args,
+            "--device", device.type, "--ckpt-dir", str(ckpt_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    steps = args[args.index("--steps") + 1]
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(f"[train] steps={steps} loss ")]
+    losses = [float(x) for x in lines[0].split(" | ")[0].split("loss ")[1].split(" -> ")] \
+        if lines else []
+    if proc.returncode != 0 or not lines or not all(np.isfinite(losses)):
+        raise AssertionError(f"train driver exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    print(f"[train] {' '.join(argv[3:])}: exit 0 in {seconds:.1f} s: {lines[0]}")
+    return {"argv": argv[1:], "rc": proc.returncode, "seconds": seconds, "line": lines[0]}
+
+
+def train_phase(smi: str) -> Dict[str, Any]:
+    """Phase 11: (a) rwkv6-3b trained at full width and depth behind the
+    driver's admission pipeline, then by the driver itself, (b) four reduced
+    families on the card against the CPU, (c) the checkpoint, supervisor,
+    donation and driver drills."""
+    from repro_torch.configs import get_config
+
+    device = torch.device("cuda")
+    full = train_full_width(get_config(TRAIN_ARCH), device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the driver itself at (a)'s width, batch and length; no checkpoint, as
+    # in (a): a full-width save writes 36.7 GB and keeps a second state
+    with tempfile.TemporaryDirectory() as tmp:
+        driver = run_driver(["--arch", TRAIN_ARCH, "--full", "--batch", str(TRAIN_BATCH),
+                             "--seq-len", str(TRAIN_SEQ), "--steps", str(TRAIN_DRIVER_STEPS),
+                             "--checkpoint-every", "0"], device, Path(tmp))
+    cross = {name: train_card_vs_cpu(name, device) for name in TRAIN_CPU_ARCHS}
+    drills = train_drills(device)
+    return {"card": smi, **full, "driver_full_width": driver, "card_vs_cpu": cross,
+            "drills": drills}
+
+
 def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -1790,6 +2211,9 @@ def run() -> int:
                              f"fewer than {max(RWKV_PROMPTS)}")
     explain = explain_phase(docs, endpoints)
     family = family_phase(docs, endpoints, prompt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_phase(smi)
     for row in kernels:
         row["launches_by_path"] = {
             "main": main["launches"][row["name"]],
@@ -1797,6 +2221,7 @@ def run() -> int:
             "serve": serve["launches"][row["name"]],
             "explain": explain["launches"][row["name"]],
             "serve_moe": family["serve_moe"]["launches"][row["name"]],
+            "train": train["launches"][row["name"]],
         }
     kernels[-1]["launches"] = registry["dense"]["launches"]["assertion_eval"]
     kernels[0]["dense"]["launches"] = registry["dense"]["launches"]["hash_match"]
@@ -1812,6 +2237,7 @@ def run() -> int:
     print(json.dumps({"serve": serve}))
     print(json.dumps({"explain": explain}))
     print(json.dumps({"family": family}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels, "timing_floor": floor}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

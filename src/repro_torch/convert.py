@@ -23,8 +23,9 @@ from .core.batch_executor import resolve_device
 from .core.tape import LocationTape
 from .data.doc_table import TokenTable
 from .registry.linker import LinkedTape
+from .train.optimizer import OptState
 
-__all__ = ["tape_from_reference", "table_from_reference", "params_from_jax"]
+__all__ = ["tape_from_reference", "table_from_reference", "params_from_jax", "opt_state_from_jax"]
 
 
 def _copy(value: Any) -> Any:
@@ -75,3 +76,18 @@ def params_from_jax(tree: Mapping[str, Any], device=None, dtype=None) -> Dict[st
             want = want or torch.bfloat16
         out[key] = torch.from_numpy(np.array(arr, copy=True)).to(device=device, dtype=want)
     return out
+
+
+def opt_state_from_jax(state: Any, device=None, dtype=None):
+    """The JAX optimizer's ``OptState(step, m, v)``, given as numpy values
+    (``jax.device_get(state)``), as the port's ``OptState`` on ``device``
+    (cuda unless told otherwise): ``step`` a 0-d int32 tensor, the moments
+    as :func:`params_from_jax` carries parameters.  With both, the two
+    packages start a step from the same parameters and Adam moments."""
+    device = resolve_device(device)
+    step, m, v = state
+    return OptState(
+        step=torch.as_tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        m=params_from_jax(m, device, dtype),
+        v=params_from_jax(v, device, dtype),
+    )

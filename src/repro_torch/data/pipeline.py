@@ -215,9 +215,10 @@ class ShardedPipeline:
     seq_len: int = 128
     batch_size: int = 8
     admission_batch: int = 64
+    device: Any = None  # admission's device: cuda unless told otherwise
 
     def __post_init__(self):
-        self.admission = AdmissionController(self.schema)
+        self.admission = AdmissionController(self.schema, device=self.device)
         self.cursor = 0
 
     def _shard_records(self) -> Iterator[Tuple[int, Any]]:

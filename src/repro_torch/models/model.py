@@ -1,8 +1,9 @@
 """Model facade: init / train-forward / prefill / decode for an ArchConfig.
 
-The JAX package's ``Model``, forward only (training and its backward are
-not ported yet).  ``init`` draws from a ``torch.Generator`` and puts the
-parameters on its device; every other method runs where its tensors are.
+The JAX package's ``Model``.  ``init`` draws from a ``torch.Generator`` and
+puts the parameters on its device; every other method runs where its
+tensors are.  ``loss`` is differentiated by ``torch.autograd``
+(``train/train_step.py``).
 Modality frontends are stubs as in the reference: ``prefix_embeddings``
 (precomputed frame/patch embeddings) are prepended to the token
 embeddings; loss applies to token positions.
@@ -53,10 +54,11 @@ class Model:
         params: Params,
         tokens: torch.Tensor,  # (B, S)
         prefix_embeddings: Optional[torch.Tensor] = None,  # (B, P, D)
+        remat: bool = True,
     ) -> torch.Tensor:
         cfg = self.cfg
         x, positions = self._embed_inputs(params, tokens, prefix_embeddings)
-        x = T.forward_train(params["stack"], cfg, x, positions)
+        x = T.forward_train(params["stack"], cfg, x, positions, remat=remat)
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         if prefix_embeddings is not None:
             x = x[:, prefix_embeddings.shape[1] :]
@@ -68,8 +70,9 @@ class Model:
         tokens: torch.Tensor,
         labels: torch.Tensor,
         prefix_embeddings: Optional[torch.Tensor] = None,
+        remat: bool = True,
     ) -> torch.Tensor:
-        logits = self.logits_train(params, tokens, prefix_embeddings)
+        logits = self.logits_train(params, tokens, prefix_embeddings, remat=remat)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         # take_along_axis reads a negative label from the end of the vocab,
         # as the reference does; the mask zeroes its term

@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.batch_executor import resolve_device
 from . import layers as L
@@ -148,25 +149,41 @@ def _ffn(p: Params, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor) -> torch.
     return x + S.rwkv_channel_mix(p["cmix"], h)
 
 
+def _period_train(
+    params: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    for i, spec in enumerate(cfg.period):
+        p = params[f"layer{i}"]
+        h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
+        if spec.mixer == "attention":
+            mixed, _ = L.attention(p["attn"], cfg, h, positions)
+        elif spec.mixer == "mamba":
+            mixed, _ = S.mamba_forward(p["mamba"], cfg, h)
+        else:
+            mixed, _ = S.rwkv6_forward(p["rwkv"], cfg, h)
+        x = _ffn(p, cfg, spec, x + mixed)
+    return x
+
+
 def forward_train(
     stack: Params,
     cfg: ArchConfig,
     x: torch.Tensor,  # (B, S, D) embedded inputs
     positions: torch.Tensor,  # (B, S)
+    remat: bool = True,
 ) -> torch.Tensor:
-    """Run the stacked periods over the embedded sequence."""
+    """Run the stacked periods over the embedded sequence.
+
+    ``remat`` keeps only each period's input for the backward pass and
+    recomputes the period there, as the reference's period-level
+    ``jax.checkpoint`` does.
+    """
     for period in range(cfg.n_periods):
         params = _period(stack, period)
-        for i, spec in enumerate(cfg.period):
-            p = params[f"layer{i}"]
-            h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
-            if spec.mixer == "attention":
-                mixed, _ = L.attention(p["attn"], cfg, h, positions)
-            elif spec.mixer == "mamba":
-                mixed, _ = S.mamba_forward(p["mamba"], cfg, h)
-            else:
-                mixed, _ = S.rwkv6_forward(p["rwkv"], cfg, h)
-            x = _ffn(p, cfg, spec, x + mixed)
+        if remat:
+            x = checkpoint(_period_train, params, cfg, x, positions, use_reentrant=False)
+        else:
+            x = _period_train(params, cfg, x, positions)
     return x
 
 

@@ -282,3 +282,50 @@ def test_family_cuda_equals_cpu(cuda, arch):
     chip = _load_chip_smoke()
     out = chip.family_card_vs_cpu(arch, list(range(1, 40)), cuda)
     assert out["max_rel_err"] <= chip.CARD_CPU_REL
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "rwkv6-3b"])
+def test_train_steps_cuda_equal_cpu(cuda, arch):
+    """Three reduced float32 train steps on the card against the CPU, from
+    one set of CPU-made parameters (chip_smoke's phase 11 (b): loss and grad
+    norm within its 1e-4 a step, parameters within 2 * sum lr, else it
+    raises)."""
+    chip = _load_chip_smoke()
+    out = chip.train_card_vs_cpu(arch, cuda)
+    assert out["max_rel_err"] <= chip.TRAIN_REL and out["max_param_err"] <= out["param_limit"]
+
+
+def test_train_pipeline_admission_cuda_equals_cpu(cuda):
+    """The driver's pipeline admits on the card and yields the CPU
+    pipeline's token batches, bit for bit."""
+    from repro_torch.data.pipeline import ShardedPipeline
+
+    chip = _load_chip_smoke()
+    schema, records = chip.driver_corpus()
+    runs = []
+    for device in ("cuda", "cpu"):
+        pipe = ShardedPipeline(schema, records[:400], seq_len=128, batch_size=2, device=device)
+        runs.append([b["tokens"] for b in pipe.batches()])
+    assert len(runs[0]) == len(runs[1]) > 0
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A bf16 parameter tree and its float32 moments, saved from the card and
+    restored onto it bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    params = Model(get_config("rwkv6-3b").reduced()).init(
+        torch.Generator("cuda").manual_seed(0))
+    state = opt.init(opt.OptimizerConfig(), params)
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    mgr.save(3, {"params": params, "opt_state": state})
+    step, got = mgr.restore({"params": params, "opt_state": state})
+    assert step == 3
+    chip = _load_chip_smoke()
+    for a, b in zip(chip._leaves(got["params"]), chip._leaves(params)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)

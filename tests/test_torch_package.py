@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of ``repro``, faithful copies.
 
-- ``repro_torch`` imports, builds a linked tape and validates on the CPU in
-  a process where ``jax`` and ``repro`` cannot be imported;
+- ``repro_torch`` imports, builds a linked tape, validates, serves, takes a
+  train step and checkpoints on the CPU in a process where ``jax``,
+  ``repro`` and ``msgpack`` cannot be imported;
 - an AST scan finds no import of either in ``src/repro_torch`` or
   ``chip_smoke.py``;
 - entry points default to CUDA and raise without it;
@@ -56,6 +57,8 @@ COPIED = [
     "models/__init__.py",
     "models/flops.py",
     *(f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))),
+    # the training slice
+    "train/__init__.py", "data/corpus.py",
 ]
 
 
@@ -65,6 +68,7 @@ def test_imports_and_runs_without_jax_or_repro():
         import pkgutil, sys
         sys.modules["jax"] = None      # any import of jax now raises
         sys.modules["repro"] = None    # and so does any import of the JAX package
+        sys.modules["msgpack"] = None  # checkpoints need no msgpack package
         import repro_torch
         for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
             __import__(info.name)
@@ -92,8 +96,21 @@ def test_imports_and_runs_without_jax_or_repro():
                                        ("complete", json.dumps({"prompt": ""}))])
         assert [r.outcome.name for r in results] == ["ADMITTED", "INVALID"]
         assert engine.step() == 1
+        import tempfile
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train.checkpoint import CheckpointManager
+        from repro_torch.train.train_step import make_train_step
+        ocfg = opt.OptimizerConfig()
+        step = make_train_step(Model(cfg), ocfg, batch=1, device="cpu")
+        tokens = torch.arange(8, dtype=torch.int32)[None]
+        params, state, metrics = step(params, opt.init(ocfg, params),
+                                      {"tokens": tokens, "labels": tokens})
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(tmp, async_save=False, device="cpu")
+            mgr.save(1, {"params": params, "opt_state": state})
+            assert mgr.restore({"params": params, "opt_state": state})[0] == 1
         loaded = [m for m, mod in sys.modules.items()
-                  if mod is not None and m.split(".")[0] in ("jax", "repro")]
+                  if mod is not None and m.split(".")[0] in ("jax", "repro", "msgpack")]
         assert not loaded, loaded
         print("standalone ok")
         """

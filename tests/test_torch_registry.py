@@ -52,6 +52,13 @@ ADAPTED = {
         ("        use_pallas: bool = False,\n", "        device=None,\n"),
         ("                use_pallas=use_pallas, layout=layout, max_depth=max_depth\n",
          "                device=device, layout=layout, max_depth=max_depth\n"),
+        # the training pipeline's admission device
+        ("    admission_batch: int = 64\n\n    def __post_init__(self):\n"
+         "        self.admission = AdmissionController(self.schema)\n",
+         "    admission_batch: int = 64\n"
+         "    device: Any = None  # admission's device: cuda unless told otherwise\n\n"
+         "    def __post_init__(self):\n"
+         "        self.admission = AdmissionController(self.schema, device=self.device)\n"),
     ],
     # the two registry CLIs: the registry's device is an argument
     "analysis/lint_tape.py": [
@@ -180,6 +187,78 @@ ADAPTED = {
         ("        ServeConfig(batch_slots=4, max_len=128, default_max_tokens=args.max_tokens),\n",
          "        ServeConfig(batch_slots=4, max_len=128, default_max_tokens=args.max_tokens),\n"
          "        device=device,\n"),
+    ],
+    # the training slice: the supervisor without its unused jax import; the
+    # driver with a --device (cuda unless told otherwise), the port's
+    # single-device train step, a seeded torch.Generator, tensors on the
+    # device and its own checkpoint directory, never the JAX package's
+    "train/supervisor.py": [("import jax\n", "")],
+    "launch/train.py": [
+        ('"""Production training driver: ``python -m repro.launch.train --arch <id>``.\n',
+         '"""Training driver: ``python -m repro_torch.launch.train --arch <id> [--device cpu]``.\n'),
+        ('Wires together config -> mesh -> sharded train step -> admission pipeline\n',
+         'Wires together config -> train step -> admission pipeline\n'),
+        ('On this CPU container it runs reduced configs end-to-end; on a fleet the\n'
+         'same driver runs the full configs (the mesh and step are identical to what\n'
+         'the dry-run compiles).\n',
+         'It runs on one device, the card unless ``--device cpu`` is given: reduced\n'
+         'configs by default, the published widths with ``--full``.\n'),
+        ('import json\n',
+         'import json\n'
+         'import tempfile\n'),
+        ('import jax\n'
+         'import jax.numpy as jnp\n'
+         'import numpy as np\n',
+         'import numpy as np\n'),
+        ('def main() -> None:\n',
+         'def main(argv=None) -> None:\n'),
+        ('    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")\n',
+         '    ap.add_argument("--ckpt-dir",\n'
+         '                    default=str(Path(tempfile.gettempdir()) / "repro_torch_ckpt"))\n'),
+        ('    args = ap.parse_args()\n',
+         '    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")\n'
+         '    args = ap.parse_args(argv)\n'),
+        ('    from ..configs import get_config\n',
+         '    import torch\n'
+         '\n'
+         '    from ..configs import get_config\n'
+         '    from ..core.batch_executor import resolve_device\n'),
+        ('    from .mesh import make_host_mesh\n',
+         ''),
+        ('    mesh = make_host_mesh()\n',
+         '    device = resolve_device(args.device)\n'),
+        ('    step, (psh, osh, bsh), _ = make_train_step(\n'
+         '        model, ocfg, mesh, batch=args.batch, donate=False\n'
+         '    )\n'
+         '    params = jax.device_put(model.init(jax.random.PRNGKey(0)), psh)\n'
+         '    opt_state = jax.device_put(opt.init(ocfg, params), osh)\n',
+         '    step = make_train_step(\n'
+         '        model, ocfg, batch=args.batch, device=device, donate=False\n'
+         '    )\n'
+         '    params = model.init(torch.Generator(device).manual_seed(0))\n'
+         '    opt_state = opt.init(ocfg, params)\n'),
+        ('    pipe = ShardedPipeline(schema, records, seq_len=args.seq_len, batch_size=args.batch)\n',
+         '    pipe = ShardedPipeline(schema, records, seq_len=args.seq_len, batch_size=args.batch,\n'
+         '                           device=device)\n'),
+        ('            prefix = jnp.zeros((args.batch, cfg.prefix_len, cfg.d_model), cfg.dtype())\n',
+         '            prefix = torch.zeros((args.batch, cfg.prefix_len, cfg.d_model),\n'
+         '                                 dtype=cfg.dtype(), device=device)\n'),
+        ('        data = {"tokens": jnp.asarray(b["tokens"] % cfg.vocab_size),\n'
+         '                "labels": jnp.asarray(b["labels"] % cfg.vocab_size)}\n',
+         '        data = {"tokens": torch.as_tensor(b["tokens"] % cfg.vocab_size, device=device),\n'
+         '                "labels": torch.as_tensor(b["labels"] % cfg.vocab_size, device=device)}\n'),
+        ('    mgr = CheckpointManager(Path(args.ckpt_dir) / cfg.name, keep=2)\n',
+         '    mgr = CheckpointManager(Path(args.ckpt_dir) / cfg.name, keep=2, device=device)\n'),
+        ('    params, opt_state, hist = sup.run(\n'
+         '        params, opt_state, itertools.cycle(pipe.batches()),\n',
+         '    # main keeps no reference to the first state: the call moves the popped\n'
+         '    # trees into run\'s frame (CPython 3.11+), which rebinds them after the\n'
+         '    # first step, so with donate=False they are freed then and not held for\n'
+         '    # the whole run (30.6 GB at rwkv6-3b\'s full width)\n'
+         '    first = {"params": params, "opt_state": opt_state}\n'
+         '    del params, opt_state\n'
+         '    params, opt_state, hist = sup.run(\n'
+         '        first.pop("params"), first.pop("opt_state"), itertools.cycle(pipe.batches()),\n'),
     ],
 }
 
