@@ -79,7 +79,7 @@ Phases, each printed on its own lines:
    against the CPU: ids equal, logits within 1e-4;
 11. train: (a) rwkv6-3b at its published widths and depth (bf16 parameters,
    float32 Adam moments) trained by the driver's components: the driver's
-   corpus through ``ShardedPipeline`` admission on the card, ``make_train_step``
+   corpus through ``ShardedPipeline`` admission on the card, the one-device step
    (remat on, ``donate=False``) under ``TrainSupervisor``, batch 4 x seq 512,
    one warm-up and 8 timed steps: step ms, tokens/s, peak memory, each step's
    loss and grad norm (finite), the FLOP bound (6 N T at 989 TFLOP/s) and the
@@ -93,16 +93,32 @@ Phases, each printed on its own lines:
    parameters within 2 * sum lr; (c) a checkpoint of reduced granite (bf16
    parameters, float32 moments) restored onto the card bit for bit, the
    supervisor's NaN rollback and resume, and ``python -m
-   repro_torch.launch.train --arch granite-3-8b --steps 4 --device cuda``.
+   repro_torch.launch.train --arch granite-3-8b --steps 4 --device cuda``
+   (the driver trains on its host mesh);
+12. mesh: (a) rwkv6-3b at its published widths and depth trained on the
+   (1, 1) mesh of ``make_host_mesh`` (NCCL) by ``make_train_step(model,
+   ocfg, mesh, batch=4)`` with ``donate=True``, its state placed by the
+   returned shardings, behind ``ShardedPipeline`` admission on the card
+   (every kernel call held against its plain version, the batches against
+   a CPU pipeline's), one warm-up, two timed and one profiled step; then
+   the same seed, state and batches through the one-device step: loss and
+   grad norm bit-equal each step, every parameter and moment leaf bit-equal
+   after the last; both medians, the device kernels of the profiled step
+   and peak memory; (b) reduced granite in float32: ``make_prefill_step``
+   and four ``make_decode_step`` calls bit-equal to ``Model.prefill`` and
+   ``Model.decode_step``; (c) phase 11 (c)'s checkpoint restored onto the
+   mesh with ``restore(shardings=...)``: every leaf a DTensor on the mesh,
+   bit-equal; (d) ``compressed_psum`` over each mesh axis on NCCL bit-equal
+   to ``int8_dequantize(*int8_quantize(x))``.
 
 Any mismatch or exception exits non-zero.  The last lines are the serve,
-explain, family and train JSON lines, the kernels JSON line (``launches`` counts the
+explain, family, train and mesh JSON lines, the kernels JSON line (``launches`` counts the
 path each kernel serves: the CSR main
 path for the first two, the dense admission for ``assertion_eval``;
 ``launches_by_path`` has every path's count: the serve burst's under
 ``serve``, phase 9's 10 timed explain admissions under ``explain``, the
 moonshot burst under ``serve_moe``, phase 11's training run under
-``train``; ``hash_match``'s ``dense``
+``train``, phase 12's mesh run under ``mesh``; ``hash_match``'s ``dense``
 holds its time, bound and launches in the dense admission,
 ``assertion_eval_window``'s ``admission`` the same in the csr admission),
 the card's name and power limit, and
@@ -174,6 +190,10 @@ TRAIN_CPU_STEPS = 3
 TRAIN_REL = 1e-4  # card against CPU, reduced, float32: loss and grad norm a step
 TRAIN_PARAM_ABS = 1e-4  # card against CPU: parameters after the steps
 TRAIN_PARAM_FLIPS = 1e-5  # the share of elements that may exceed it (sign flips)
+# phase 12: the mesh
+MESH_STEPS = 4  # one warm-up, two timed, one profiled
+MESH_SERVE_MAX_LEN = 64
+MESH_DECODE_STEPS = 4
 
 # the gateway's endpoint mix (benchmarks/registry.py): completions dominate,
 # moderation is the tail; charge is the tagged-union endpoint with circuits
@@ -991,12 +1011,14 @@ def host_phases(run: Callable[[], Any], tag: str, reps: int = 5) -> Dict[str, fl
     return out
 
 
-def profile(run: Callable[[], Any], tag: str) -> Dict[str, Any]:
-    """One call of ``run`` under torch.profiler: device-busy time and top kernels."""
+def profile(run: Callable[[], Any], tag: str, warm: bool = True) -> Dict[str, Any]:
+    """One call of ``run`` under torch.profiler (after one unprofiled call
+    unless ``warm`` is false): device-busy time and top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    run()
+    if warm:
+        run()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1771,7 +1793,7 @@ def _driver_data(cfg, b, device) -> Dict[str, torch.Tensor]:
 def train_full_width(cfg, device, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
                      steps: int = TRAIN_WARMUP + TRAIN_TIMED) -> Dict[str, Any]:
     """(a) The driver's components at ``cfg``'s published widths and depth:
-    ``ShardedPipeline`` admission on ``device``, ``make_train_step``
+    ``ShardedPipeline`` admission on ``device``, the one-device step
     (remat on, ``donate=False``) and ``TrainSupervisor`` with
     ``checkpoint_every=0``, for ``steps`` steps (the first a warm-up).
     Every admission kernel call is held against its plain version and every
@@ -1784,13 +1806,13 @@ def train_full_width(cfg, device, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ
     from repro_torch.train import optimizer as opt
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.supervisor import SupervisorConfig, TrainSupervisor
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import _make_device_step
 
     schema, records = driver_corpus()
     model = Model(cfg)
     ocfg = opt.OptimizerConfig(learning_rate=1e-3, warmup_steps=5, total_steps=steps,
                                state_dtype=cfg.optimizer_state_dtype)
-    step = make_train_step(model, ocfg, batch=batch, device=device, donate=False)
+    step = _make_device_step(model, ocfg, batch=batch, device=device, donate=False)
     pipe = ShardedPipeline(schema, records, seq_len=seq, batch_size=batch, device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1916,7 +1938,7 @@ def train_full_width(cfg, device, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ
 
 def train_card_vs_cpu(name: str, device) -> Dict[str, Any]:
     """(b) ``get_config(name).reduced()`` in float32 (TF32 off) from one set
-    of CPU-made parameters: ``TRAIN_CPU_STEPS`` steps of ``make_train_step``
+    of CPU-made parameters: ``TRAIN_CPU_STEPS`` steps of the one-device step
     on the card and on the CPU.  Per step the loss and the grad norm agree
     within ``TRAIN_REL``.  The parameters after the steps agree within
     ``TRAIN_PARAM_ABS``, about a third of the last step's lr, so that a
@@ -1930,7 +1952,7 @@ def train_card_vs_cpu(name: str, device) -> Dict[str, Any]:
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.train import optimizer as opt
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import _make_device_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1946,7 +1968,7 @@ def train_card_vs_cpu(name: str, device) -> Dict[str, Any]:
     for where in (device, torch.device("cpu")):
         p = _tree_to(params, where)
         s = opt.init(ocfg, p)
-        step = make_train_step(model, ocfg, batch=2, device=where, donate=False)
+        step = _make_device_step(model, ocfg, batch=2, device=where, donate=False)
         seen = []
         for t in tokens:
             labels = np.roll(t, -1, axis=1)
@@ -1980,24 +2002,25 @@ def train_card_vs_cpu(name: str, device) -> Dict[str, Any]:
             "loss": [m["loss"] for m in got]}
 
 
-def train_drills(device) -> Dict[str, Any]:
+def train_drills(device, keep: Path) -> Dict[str, Any]:
     """(c) On the card, reduced granite-3-8b (bf16 parameters, float32
-    moments): a checkpoint saved and restored onto the card bit for bit;
-    the supervisor's NaN rollback and its resume from a checkpoint; the
-    the step with ``donate=True`` against ``donate=False``; the driver
-    ``python -m repro_torch.launch.train`` as a subprocess."""
+    moments): a checkpoint saved (into ``keep``, for phase 12 (c)) and
+    restored onto the card bit for bit; the supervisor's NaN rollback and
+    its resume from a checkpoint; the step with ``donate=True`` against
+    ``donate=False``; the driver ``python -m repro_torch.launch.train`` as a
+    subprocess."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import optimizer as opt
     from repro_torch.train import tree as tree_util
     from repro_torch.train.supervisor import SupervisorConfig, TrainSupervisor
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import _make_device_step
 
     cfg = get_config(SERVE_ARCH).reduced()
     model = Model(cfg)
     ocfg = opt.OptimizerConfig(warmup_steps=2, total_steps=50)
-    step = make_train_step(model, ocfg, batch=2, device=device, donate=False, remat=False)
+    step = _make_device_step(model, ocfg, batch=2, device=device, donate=False, remat=False)
     params = model.init(torch.Generator(device).manual_seed(SEED))
     state = opt.init(ocfg, params)
 
@@ -2012,7 +2035,7 @@ def train_drills(device) -> Dict[str, Any]:
         # save -> restore onto the card, bit for bit (moments after one step)
         params, state, _ = step(params, state, batch(0))
         bundle = {"params": params, "opt_state": state}
-        mgr = ckpt.CheckpointManager(tmp / "roundtrip", device=device)  # async save
+        mgr = ckpt.CheckpointManager(keep / "roundtrip", device=device)  # async save
         mgr.save(1, bundle)
         mgr.wait()
         restored_step, restored = mgr.restore(bundle)  # new tensors, read from disk
@@ -2023,9 +2046,9 @@ def train_drills(device) -> Dict[str, Any]:
                 a.device.type == device.type and a.dtype == b.dtype and torch.equal(a, b)
                 for a, b in zip(got, want)):
             raise AssertionError("train: the checkpoint did not restore bit for bit onto the card")
-        files = sorted(p.name for p in (tmp / "roundtrip" / "step_0000000001").iterdir())
+        files = sorted(p.name for p in (keep / "roundtrip" / "step_0000000001").iterdir())
         out["checkpoint"] = {"leaves": len(got), "bytes": sum(
-            (tmp / "roundtrip" / "step_0000000001" / f).stat().st_size for f in files),
+            (keep / "roundtrip" / "step_0000000001" / f).stat().st_size for f in files),
             "compressed": any(f.endswith(".zst") for f in files)}
         print(f"[train] checkpoint of reduced {SERVE_ARCH} ({cfg.param_dtype} parameters, "
               f"{cfg.optimizer_state_dtype} moments): {len(got)} leaves, "
@@ -2067,8 +2090,8 @@ def train_drills(device) -> Dict[str, Any]:
 
         # donate=True, the reference's default: the step writes into the
         # tensors it is given, bit for bit what donate=False returns fresh
-        donated = make_train_step(model, ocfg, batch=2, device=device, donate=True,
-                                  remat=False)
+        donated = _make_device_step(model, ocfg, batch=2, device=device, donate=True,
+                                    remat=False)
         kept_p, kept_s, kept_m = step(params, state, batch(1))
         given_p, given_s = tree_util.tree_map(torch.clone, (params, state))
         given = tree_util.leaves((given_p, given_s))
@@ -2109,11 +2132,11 @@ def run_driver(args: List[str], device, ckpt_dir: Path) -> Dict[str, Any]:
     return {"argv": argv[1:], "rc": proc.returncode, "seconds": seconds, "line": lines[0]}
 
 
-def train_phase(smi: str) -> Dict[str, Any]:
+def train_phase(smi: str, keep: Path) -> Dict[str, Any]:
     """Phase 11: (a) rwkv6-3b trained at full width and depth behind the
-    driver's admission pipeline, then by the driver itself, (b) four reduced
-    families on the card against the CPU, (c) the checkpoint, supervisor,
-    donation and driver drills."""
+    driver's admission pipeline by the one-device step, then by the driver
+    itself (on its host mesh), (b) four reduced families on the card against
+    the CPU, (c) the checkpoint, supervisor, donation and driver drills."""
     from repro_torch.configs import get_config
 
     device = torch.device("cuda")
@@ -2127,9 +2150,284 @@ def train_phase(smi: str) -> Dict[str, Any]:
                              "--seq-len", str(TRAIN_SEQ), "--steps", str(TRAIN_DRIVER_STEPS),
                              "--checkpoint-every", "0"], device, Path(tmp))
     cross = {name: train_card_vs_cpu(name, device) for name in TRAIN_CPU_ARCHS}
-    drills = train_drills(device)
+    drills = train_drills(device, keep)
     return {"card": smi, **full, "driver_full_width": driver, "card_vs_cpu": cross,
             "drills": drills}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the mesh
+# ---------------------------------------------------------------------------
+
+
+def _host_copy(tree) -> List[torch.Tensor]:
+    """Every leaf of ``tree`` (params and ``OptState``), in JAX's order, as a
+    host tensor (a DTensor's local shard: the whole leaf on one device)."""
+    from repro_torch.train import tree as tree_util
+
+    return [(x.to_local() if hasattr(x, "to_local") else x).detach().cpu()
+            for x in tree_util.leaves(tree)]
+
+
+def _train_run(step, params, opt_state, datas, device, tag) -> Dict[str, Any]:
+    """``step`` over ``datas`` (donated trees): the first a warm-up, then the
+    timed steps, the last under the profiler.  Host ms a step, synchronised
+    on the loss's device-to-host copy as the supervisor's clock is."""
+    ms, losses, norms = [], [], []
+    state = [params, opt_state]
+    del params, opt_state
+
+    def one(data):
+        t0 = time.perf_counter()
+        state[0], state[1], m = step(state[0], state[1], data)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+
+    for data in datas[:-1]:
+        one(data)
+    prof = profile(lambda: one(datas[-1]), tag, warm=False)
+    _sync(device)
+    return {"params": state[0], "opt_state": state[1], "step_ms": ms[:-1],
+            "median_step_ms": statistics.median(ms[TRAIN_WARMUP:-1]), "loss": losses,
+            "grad_norm": norms, "profile": prof}
+
+
+def mesh_full_width(cfg, device, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                    steps: int = MESH_STEPS) -> Dict[str, Any]:
+    """(a) ``cfg`` at its published widths and depth trained on the (1, 1)
+    mesh of ``make_host_mesh`` by ``make_train_step(model, ocfg, mesh)``
+    (remat on, ``donate=True``), its state placed by the returned
+    shardings, behind ``ShardedPipeline`` admission on the card; then the
+    same seed, state and batches through the one-device step.  Loss and
+    grad norm bit-equal each step, every parameter and moment leaf bit-equal
+    after the last (each leaf of the mesh run kept on the host)."""
+    from repro_torch.data.pipeline import ShardedPipeline
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_tape_cuda
+    from repro_torch.kernels.hash_match import hash_match_cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.sharding.rules import device_put
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import _make_device_step, make_train_step
+
+    import torch.distributed as dist
+
+    mesh = make_host_mesh(device)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the card's mesh runs on {dist.get_backend()}, not NCCL")
+    schema, records = driver_corpus()
+    model = Model(cfg)
+    ocfg = opt.OptimizerConfig(learning_rate=1e-3, warmup_steps=5, total_steps=steps,
+                               state_dtype=cfg.optimizer_state_dtype)
+    mesh_step, (psh, osh, _), _ = make_train_step(model, ocfg, mesh, batch=batch, donate=True)
+    pipe = ShardedPipeline(schema, records, seq_len=seq, batch_size=batch, device=device)
+    pulled: List[dict] = []
+
+    def batches():
+        for b in itertools.islice(pipe.batches(), steps):
+            pulled.append(b)
+            yield _driver_data(cfg, b, device)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = device_put(model.init(torch.Generator(device).manual_seed(SEED)), psh)
+    opt_state = device_put(opt.init(ocfg, params), osh)
+    placements = sorted({str(x.placements) for x in _leaves(params)})
+    zero_launch_counts()
+    runs = {}
+    captured = capture_kernel_inputs(lambda: runs.update(mesh=_train_run(
+        mesh_step, params, opt_state, list(batches()), device, "mesh step")))
+    launches = launch_counts()
+    del params, opt_state
+    mesh_peak = torch.cuda.max_memory_allocated()
+    if launches["hash_match"] < 1 or launches["assertion_eval_window"] < 1:
+        raise AssertionError(f"mesh: the admissions launched no CSR kernel: {launches}")
+    for args in captured["hash_match"]:
+        _check_equal("hash_match in mesh admission", hash_match_cuda(*args),
+                     ref.hash_match_ref(*args))
+    for args in captured["assertion_eval_window"]:
+        _check_equal("assertion_eval_window in mesh admission",
+                     assertion_eval_window_tape_cuda(*args),
+                     ref.assertion_eval_window_tape_ref(*args))
+    cpu_pipe = ShardedPipeline(schema, records, seq_len=seq, batch_size=batch, device="cpu")
+    for i, (got, exp) in enumerate(zip(pulled, itertools.islice(cpu_pipe.batches(), steps))):
+        if not all(np.array_equal(got[k], exp[k]) for k in ("tokens", "labels")):
+            raise AssertionError(f"mesh: batch {i} differs from the CPU pipeline's")
+    mesh_run = runs["mesh"]
+    t0 = time.perf_counter()
+    kept = _host_copy((mesh_run.pop("params"), mesh_run.pop("opt_state")))
+    host_copy_s = time.perf_counter() - t0
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    one_step = _make_device_step(model, ocfg, batch=batch, device=device, donate=True)
+    params = model.init(torch.Generator(device).manual_seed(SEED))
+    opt_state = opt.init(ocfg, params)
+    one_run = _train_run(one_step, params, opt_state,
+                         [_driver_data(cfg, b, device) for b in pulled], device, "one-device step")
+    del params, opt_state
+    one_peak = torch.cuda.max_memory_allocated()
+    for key in ("loss", "grad_norm"):
+        if mesh_run[key] != one_run[key]:
+            raise AssertionError(f"mesh: {key} {mesh_run[key]} against the one-device "
+                                 f"step's {one_run[key]}")
+    from repro_torch.train import tree as tree_util
+
+    got = tree_util.leaves((one_run.pop("params"), one_run.pop("opt_state")))
+    if len(got) != len(kept) or not all(
+            a.dtype == b.dtype and torch.equal(a.cpu(), b) for a, b in zip(got, kept)):
+        raise AssertionError("mesh: the state after the last step differs from the "
+                             "one-device step's")
+    n_state = len(kept)
+    del got, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = batch * seq
+    m_med, o_med = mesh_run["median_step_ms"], one_run["median_step_ms"]
+    m_k, o_k = mesh_run["profile"]["device_calls"], one_run["profile"]["device_calls"]
+    print(f"[mesh] {cfg.name} at full width on the (1, 1) mesh {tuple(mesh.mesh_dim_names)} "
+          f"over {dist.get_backend()}: placements {placements}; batch {batch} x seq {seq}, "
+          f"remat on, donate=True, {steps} steps (1 warm-up, {steps - 2} timed, 1 profiled) "
+          f"behind {len(pulled)} pipeline batches equal to a CPU pipeline's; kernel launches "
+          f"{launches}, every call equal to its plain version")
+    print(f"[mesh] loss {mesh_run['loss']}; grad norm {mesh_run['grad_norm']}: bit-equal to "
+          f"the one-device step's each step; all {n_state} parameter and moment leaves "
+          f"bit-equal after the last (host copy {host_copy_s:.1f} s)")
+    print(f"[mesh] step ms mesh {', '.join(f'{x:.1f}' for x in mesh_run['step_ms'])} (median "
+          f"{m_med:.1f}, {tokens / (m_med / 1e3):.1f} tokens/s); one-device "
+          f"{', '.join(f'{x:.1f}' for x in one_run['step_ms'])} (median {o_med:.1f}); device "
+          f"kernels a profiled step {m_k} on the mesh, {o_k} on one device; peak memory "
+          f"{mesh_peak} B on the mesh, {one_peak} B on one device")
+    return {"arch": cfg.name, "mesh": list(mesh.shape), "axes": list(mesh.mesh_dim_names),
+            "backend": dist.get_backend(), "placements": placements, "batch": batch,
+            "seq": seq, "steps": steps, "remat": True, "donate": True,
+            "loss": mesh_run["loss"], "grad_norm": mesh_run["grad_norm"],
+            "state_leaves": n_state, "bit_equal": True,
+            "mesh_step_ms": mesh_run["step_ms"], "mesh_median_step_ms": m_med,
+            "one_device_step_ms": one_run["step_ms"], "one_device_median_step_ms": o_med,
+            "mesh_profile": mesh_run["profile"], "one_device_profile": one_run["profile"],
+            "mesh_peak_bytes": mesh_peak, "one_device_peak_bytes": one_peak,
+            "pipeline_batches": len(pulled), "launches": launches}
+
+
+def mesh_serving(device) -> Dict[str, Any]:
+    """(b) Reduced granite in float32 on the (1, 1) mesh: ``make_prefill_step``
+    and ``make_decode_step`` against ``Model.prefill`` and
+    ``Model.decode_step`` on the same parameters: logits and cache bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.sharding.rules import device_put
+    from repro_torch.train import tree as tree_util
+    from repro_torch.train.train_step import make_decode_step, make_prefill_step
+
+    mesh = make_host_mesh(device)
+    cfg = get_config(SERVE_ARCH).reduced(param_dtype="float32", activation_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(SEED))
+    batch, length, max_len = 4, 48, MESH_SERVE_MAX_LEN
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, length + MESH_DECODE_STEPS)).astype(np.int32), device=device)
+    prefill, (psh, _), _ = make_prefill_step(model, mesh, batch=batch, max_len=max_len)
+    decode, _, _ = make_decode_step(model, mesh, batch=batch, max_len=max_len)
+    placed = device_put(params, psh)
+
+    def check(what, got, want):
+        (got_logits, got_cache), (want_logits, want_cache) = got, want
+        if not torch.equal(got_logits.to_local(), want_logits) or not all(
+                torch.equal(a.to_local(), b)
+                for a, b in zip(tree_util.leaves(got_cache), tree_util.leaves(want_cache))):
+            raise AssertionError(f"mesh: the {what} step differs from the model's")
+        return got_cache, want_cache
+
+    got_cache, want_cache = check("prefill", prefill(placed, tokens[:, :length]),
+                                  model.prefill(params, tokens[:, :length], max_len))
+    for i in range(MESH_DECODE_STEPS):
+        token = tokens[:, length + i:length + i + 1]
+        got_cache, want_cache = check(
+            f"decode {i}", decode(placed, token, got_cache, length + i),
+            model.decode_step(params, token, want_cache, length + i))
+    n_cache = len(tree_util.leaves(got_cache))
+    print(f"[mesh] reduced {SERVE_ARCH} in float32 on the mesh: make_prefill_step of {batch} x "
+          f"{length} tokens and {MESH_DECODE_STEPS} make_decode_step calls, logits and all "
+          f"{n_cache} cache leaves bit-equal to Model.prefill and Model.decode_step")
+    return {"arch": cfg.name, "batch": batch, "prompt": length, "max_len": max_len,
+            "decode_steps": MESH_DECODE_STEPS, "cache_leaves": n_cache, "bit_equal": True}
+
+
+def mesh_restore(device, keep: Path) -> Dict[str, Any]:
+    """(c) Phase 11 (c)'s reduced granite checkpoint restored onto the
+    (1, 1) mesh with ``restore(shardings=...)``: every leaf a DTensor on the
+    mesh, laid out by its sharding, and bit-equal to a plain restore."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import tree as tree_util
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.train_step import make_train_step
+    from torch.distributed.tensor import DTensor
+
+    mesh = make_host_mesh(device)
+    cfg = get_config(SERVE_ARCH).reduced()
+    model = Model(cfg)
+    ocfg = opt.OptimizerConfig(warmup_steps=2, total_steps=50)
+    _, (psh, osh, _), _ = make_train_step(model, ocfg, mesh, batch=2)
+    params = model.init(torch.Generator(device).manual_seed(SEED))
+    like = {"params": params, "opt_state": opt.init(ocfg, params)}
+    mgr = CheckpointManager(keep / "roundtrip", device=device)
+    step, plain = mgr.restore(like)
+    step_m, placed = mgr.restore(like, shardings={"params": psh, "opt_state": osh})
+    shardings = tree_util.leaves({"params": psh, "opt_state": osh})
+    got, want = tree_util.leaves(placed), tree_util.leaves(plain)
+    if step_m != step or len(got) != len(want) or not all(
+            isinstance(a, DTensor) and a.device_mesh == mesh and a.placements == s.placements
+            and a.dtype == b.dtype and torch.equal(a.to_local(), b)
+            for a, b, s in zip(got, want, shardings)):
+        raise AssertionError("mesh: the checkpoint did not restore onto the mesh bit for bit")
+    print(f"[mesh] phase 11 (c)'s checkpoint (step {step}) restored onto the mesh: all "
+          f"{len(got)} leaves DTensors laid out by their shardings, bit-equal")
+    return {"step": step, "leaves": len(got), "bit_equal": True}
+
+
+def mesh_psum(device) -> Dict[str, Any]:
+    """(d) ``compressed_psum`` over each axis of the (1, 1) mesh on NCCL
+    (one rank): bit-equal to ``int8_dequantize(*int8_quantize(x))``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.train_step import compressed_psum, int8_dequantize, int8_quantize
+
+    mesh = make_host_mesh(device)
+    gen = torch.Generator(device).manual_seed(SEED)
+    x = {"a": torch.randn((4096, 257), generator=gen, device=device),
+         "b": 1e-3 * torch.randn((3, 5, 7), generator=gen, device=device)}
+    for axis in mesh.mesh_dim_names:
+        got = compressed_psum(x, axis, mesh)
+        for k, v in x.items():
+            if not torch.equal(got[k], int8_dequantize(*int8_quantize(v))):
+                raise AssertionError(f"mesh: compressed_psum over {axis} differs for {k}")
+    print(f"[mesh] compressed_psum over each axis of the mesh on NCCL: bit-equal to "
+          f"int8_dequantize(*int8_quantize(x)) for {[tuple(v.shape) for v in x.values()]}")
+    return {"axes": list(mesh.mesh_dim_names), "shapes": [list(v.shape) for v in x.values()],
+            "bit_equal": True}
+
+
+def mesh_phase(smi: str, keep: Path) -> Dict[str, Any]:
+    """Phase 12: (a) rwkv6-3b trained at full width on the (1, 1) mesh
+    against the one-device step, (b) the serving steps, (c) the restore onto
+    the mesh, (d) ``compressed_psum`` over NCCL."""
+    from repro_torch.configs import get_config
+
+    device = torch.device("cuda")
+    full = mesh_full_width(get_config(TRAIN_ARCH), device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"card": smi, **full, "serving": mesh_serving(device),
+            "restore": mesh_restore(device, keep), "compressed_psum": mesh_psum(device)}
 
 
 def run() -> int:
@@ -2213,7 +2511,11 @@ def run() -> int:
     family = family_phase(docs, endpoints, prompt)
     gc.collect()
     torch.cuda.empty_cache()
-    train = train_phase(smi)
+    with tempfile.TemporaryDirectory() as keep:
+        train = train_phase(smi, Path(keep))
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = mesh_phase(smi, Path(keep))
     for row in kernels:
         row["launches_by_path"] = {
             "main": main["launches"][row["name"]],
@@ -2222,6 +2524,7 @@ def run() -> int:
             "explain": explain["launches"][row["name"]],
             "serve_moe": family["serve_moe"]["launches"][row["name"]],
             "train": train["launches"][row["name"]],
+            "mesh": mesh["launches"][row["name"]],
         }
     kernels[-1]["launches"] = registry["dense"]["launches"]["assertion_eval"]
     kernels[0]["dense"]["launches"] = registry["dense"]["launches"]["hash_match"]
@@ -2238,6 +2541,7 @@ def run() -> int:
     print(json.dumps({"explain": explain}))
     print(json.dumps({"family": family}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": kernels, "timing_floor": floor}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Training driver: ``python -m repro_torch.launch.train --arch <id> [--device cpu]``.
 
-Wires together config -> train step -> admission pipeline
+Wires together config -> mesh -> sharded train step -> admission pipeline
 -> supervised loop (checkpoint/restart, NaN rollback, straggler watch).
-It runs on one device, the card unless ``--device cpu`` is given: reduced
-configs by default, the published widths with ``--full``.
+It trains on a mesh of one device (``make_host_mesh``), the card unless
+``--device cpu`` is given: reduced configs by default, the published
+widths with ``--full``.
 """
 
 from __future__ import annotations
@@ -39,10 +40,12 @@ def main(argv=None) -> None:
     from ..data.corpus import make_dataset
     from ..data.pipeline import ShardedPipeline
     from ..models import Model
+    from ..sharding.rules import device_put
     from ..train import optimizer as opt
     from ..train.checkpoint import CheckpointManager
     from ..train.supervisor import SupervisorConfig, TrainSupervisor
     from ..train.train_step import make_train_step
+    from .mesh import make_host_mesh
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -52,15 +55,16 @@ def main(argv=None) -> None:
           f"(active {cfg.active_param_count()/1e6:.1f}M)")
 
     device = resolve_device(args.device)
+    mesh = make_host_mesh(device)
     ocfg = opt.OptimizerConfig(
         learning_rate=1e-3, warmup_steps=5, total_steps=args.steps,
         state_dtype=cfg.optimizer_state_dtype,
     )
-    step = make_train_step(
-        model, ocfg, batch=args.batch, device=device, donate=False
+    step, (psh, osh, bsh), _ = make_train_step(
+        model, ocfg, mesh, batch=args.batch, donate=False
     )
-    params = model.init(torch.Generator(device).manual_seed(0))
-    opt_state = opt.init(ocfg, params)
+    params = device_put(model.init(torch.Generator(device).manual_seed(0)), psh)
+    opt_state = device_put(opt.init(ocfg, params), osh)
 
     ds = make_dataset("driver-corpus", 2000, 6.0, 350, seed=11)
     records = [{"text": json.dumps(d)} for d in ds.documents]

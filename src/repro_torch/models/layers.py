@@ -4,9 +4,7 @@ The JAX package's ``models/layers.py`` function for function.  Parameters
 are plain nested dicts of tensors; initialisers draw from an explicit
 ``torch.Generator`` and put their tensors on its device.  The casts sit
 where the reference makes them: norms, RoPE and softmax in float32, then
-back to the activation dtype; masked scores are ``-1e30``.  The
-reference's sharding constraints are the identity on one device and are
-left out.
+back to the activation dtype; masked scores are ``-1e30``.
 """
 
 from __future__ import annotations
@@ -17,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..sharding.constraints import constrain, constrain_split, model_axis_divides
 from .config import ArchConfig
 
 Params = Dict[str, Any]
@@ -117,10 +116,19 @@ def attention_init(generator: torch.Generator, cfg: ArchConfig) -> Params:
     return params
 
 
+def _project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` as the GEMM that einsum runs
+    (heads and head dim flattened), then the split into heads, which a
+    sharded DTensor needs ready (``constrain_split``)."""
+    d, h, k = w.shape
+    y = torch.einsum("bsd,dn->bsn", x, w.reshape(d, h * k))
+    return constrain_split(y, -1, h).unflatten(-1, (h, k))
+
+
 def _qkv(params: Params, cfg: ArchConfig, x: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = _project_heads(x, params["wq"])
+    k = _project_heads(x, params["wk"])
+    v = _project_heads(x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -132,7 +140,7 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_rep: int) -> torch.Tensor:
     """q: (B, Sq, H, Dh), k: (B, Sk, KVH, Dh) -> (B, H, Sq, Sk)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
-    qg = q.reshape(b, sq, kvh, n_rep, hd)
+    qg = constrain_split(q, 2, kvh).reshape(b, sq, kvh, n_rep, hd)
     scores = torch.einsum("bsgrk,btgk->bgrst", qg, k)
     return scores.reshape(b, h, sq, k.shape[1])
 
@@ -141,7 +149,7 @@ def _gqa_values(probs: torch.Tensor, v: torch.Tensor, n_rep: int) -> torch.Tenso
     """probs: (B, H, Sq, Sk), v: (B, Sk, KVH, Dh) -> (B, Sq, H, Dh)."""
     b, h, sq, sk = probs.shape
     kvh = v.shape[2]
-    pg = probs.reshape(b, kvh, n_rep, sq, sk)
+    pg = constrain_split(probs, 1, kvh).reshape(b, kvh, n_rep, sq, sk)
     out = torch.einsum("bgrst,btgk->bsgrk", pg, v)
     return out.reshape(b, sq, h, v.shape[3])
 
@@ -217,6 +225,20 @@ def attention(
     q, k, v = _qkv(params, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    # pin Q/K/V layouts before any chunk loop (train/prefill full-sequence
+    # paths only): heads on the model axis when they divide it (Megatron
+    # head sharding), else K/V on the key-sequence dim, so that the scores
+    # inherit the Sk sharding and softmax/value reductions become small
+    # all-reduces.  A None dim means replicated, not unconstrained.
+    if kv_cache is None:
+        if model_axis_divides(cfg.n_heads):
+            q = constrain(q, "batch", None, "model", None)
+        if model_axis_divides(cfg.n_kv_heads):
+            k = constrain(k, "batch", None, "model", None)
+            v = constrain(v, "batch", None, "model", None)
+        else:
+            k = constrain(k, "batch", "model", None, None)
+            v = constrain(v, "batch", "model", None, None)
 
     if kv_cache is not None:
         idx = int(cache_index)

@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..sharding.constraints import constrain_bsd, constrain_logits
 from . import layers as L
 from . import transformer as T
 from .config import ArchConfig
@@ -43,6 +44,7 @@ class Model:
         x = L.embed(params["embedding"], tokens)  # (B, S, D)
         if prefix is not None:
             x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        x = constrain_bsd(x)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
         return x, positions
@@ -62,7 +64,7 @@ class Model:
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         if prefix_embeddings is not None:
             x = x[:, prefix_embeddings.shape[1] :]
-        return L.unembed(params["embedding"], cfg, x)
+        return constrain_logits(L.unembed(params["embedding"], cfg, x))
 
     def loss(
         self,
@@ -95,7 +97,7 @@ class Model:
         x, positions = self._embed_inputs(params, tokens, prefix_embeddings)
         x, cache = T.forward_prefill(params["stack"], cfg, x, positions, max_len)
         x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-        return L.unembed(params["embedding"], cfg, x), cache
+        return constrain_logits(L.unembed(params["embedding"], cfg, x)), cache
 
     def decode_step(
         self,
@@ -110,7 +112,7 @@ class Model:
         x = L.embed(params["embedding"], token)
         x, cache = T.forward_decode(params["stack"], cfg, x, cache, int(cache_len))
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return L.unembed(params["embedding"], cfg, x), cache
+        return constrain_logits(L.unembed(params["embedding"], cfg, x)), cache
 
     def init_cache(self, batch: int, max_len: int, device=None) -> Params:
         """Zero decode cache on ``device`` (cuda unless told otherwise)."""

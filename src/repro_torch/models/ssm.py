@@ -12,9 +12,8 @@ it.
 Decode performs the exact recurrence, one step per token, O(1) in context
 length.
 
-Left out, as identities on one device or training concerns: the
-reference's sharding constraints (``sharding/constraints.py``) and its
-``jax.checkpoint`` of the chunk bodies.
+Left out, as a training concern: the reference's ``jax.checkpoint`` of the
+chunk bodies.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..sharding.constraints import constrain
 from .config import ArchConfig
 from .layers import dense_init, sigmoid, silu, softplus
 
@@ -113,6 +113,9 @@ def mamba_forward(
     b, s, d = u.shape
     di, n, kconv = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
     xz_all = torch.einsum("bsd,de->bse", u, params["in_proj"])  # (B, S, 2Di)
+    # pin the inner (channel) dim on the model axis: the whole selective
+    # scan is channel-independent, so Di shards cleanly (tensor parallel)
+    xz_all = constrain(xz_all, "batch", None, "model")
 
     x_all = xz_all[..., :di]
     # causal depthwise conv over the whole sequence
@@ -125,14 +128,19 @@ def mamba_forward(
 
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
-    h = torch.zeros((b, di, n), dtype=torch.float32, device=u.device)
+    h = constrain(torch.zeros((b, di, n), dtype=torch.float32, device=u.device),
+                  "batch", "model", None)
     ys = []
     for c0 in range(0, s, chunk):
-        x, z, dA, dBx, c_mat = _mamba_discretize(params, cfg, xz_all[:, c0 : c0 + chunk])
+        xz = constrain(xz_all[:, c0 : c0 + chunk], "batch", None, "model")
+        x, z, dA, dBx, c_mat = _mamba_discretize(params, cfg, xz)
+        dA = constrain(dA, "batch", None, "model", None)
+        dBx = constrain(dBx, "batch", None, "model", None)
         h_all, h = _mamba_chunk_scan(h, dA, dBx)
         y = torch.einsum("bcin,bcn->bci", h_all, c_mat.to(torch.float32))
         y = y + params["D"] * x.to(torch.float32)
         ys.append((y * silu(z.to(torch.float32))).to(u.dtype))
+        h = constrain(h, "batch", "model", None)
     y = torch.cat(ys, dim=1)
     out = torch.einsum("bsi,id->bsd", y, params["out_proj"])
     state = {

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.batch_executor import resolve_device
+from ..sharding.constraints import constrain_bsd
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -152,6 +153,9 @@ def _ffn(p: Params, cfg: ArchConfig, spec: LayerSpec, x: torch.Tensor) -> torch.
 def _period_train(
     params: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor
 ) -> torch.Tensor:
+    # seq-sharded carry = Megatron sequence parallelism: the saved
+    # residual stack shrinks by the model-axis size
+    x = constrain_bsd(x, seq_shard=True)
     for i, spec in enumerate(cfg.period):
         p = params[f"layer{i}"]
         h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
@@ -162,7 +166,7 @@ def _period_train(
         else:
             mixed, _ = S.rwkv6_forward(p["rwkv"], cfg, h)
         x = _ffn(p, cfg, spec, x + mixed)
-    return x
+    return constrain_bsd(x, seq_shard=True)
 
 
 def forward_train(
@@ -202,6 +206,7 @@ def forward_prefill(
     caches: List[Params] = []
     for period in range(cfg.n_periods):
         params = _period(stack, period)
+        x = constrain_bsd(x, seq_shard=True)
         cache_out: Params = {}
         for i, spec in enumerate(cfg.period):
             p = params[f"layer{i}"]
@@ -247,6 +252,7 @@ def forward_decode(
     for period in range(cfg.n_periods):
         params = _period(stack, period)
         period_cache = _period(cache, period)
+        x = constrain_bsd(x)
         for i, spec in enumerate(cfg.period):
             p = params[f"layer{i}"]
             c = period_cache[f"layer{i}"]

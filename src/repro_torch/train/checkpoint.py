@@ -14,8 +14,9 @@ encodes and decodes that subset itself, byte for byte as ``msgpack.packb``
 does, and needs no msgpack package.
 
 ``restore`` places every leaf on the manager's device (cuda unless told
-otherwise) or the one it is given.  Restoring onto a mesh (the reference's
-``shardings``) belongs to the sharding slice.
+otherwise) or the one it is given, or, given ``shardings``, on a mesh:
+each leaf is distributed as its ``NamedSharding`` says (elastic re-mesh is
+just a different shardings tree).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core.batch_executor import resolve_device
 from . import tree as tree_util
@@ -190,7 +192,10 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def _host(leaf: Any) -> Tuple[str, List[int], bytes]:
-    """(dtype name, shape, raw bytes) of a leaf, copied to the host now."""
+    """(dtype name, shape, raw bytes) of a leaf, copied to the host now (a
+    DTensor is gathered whole first, on every rank of its mesh)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach().to("cpu", copy=True).contiguous()
     raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
     return _dtype_name(t.dtype), list(t.shape), raw.numpy().tobytes()
@@ -293,16 +298,15 @@ class CheckpointManager:
         step: Optional[int] = None,
         device=None,
         strict_integrity: bool = True,
-        shardings: None = None,
+        shardings: Optional[Params] = None,
     ) -> Tuple[int, Params]:
         """Restore into the structure of ``like`` (shape/dtype template),
         every leaf on ``device`` (the manager's unless given).
 
-        ``shardings`` is the reference's restore onto a mesh; the port takes
-        only ``None`` there until it has meshes.
+        ``shardings`` (a tree of ``sharding.rules.NamedSharding`` matching
+        ``like``) places each leaf on the restore mesh instead, as a
+        DTensor; every rank of the mesh reads the whole leaf.
         """
-        if shardings is not None:
-            raise NotImplementedError("restoring onto a mesh needs the sharding slice")
         device = self.device if device is None else resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -312,8 +316,11 @@ class CheckpointManager:
         by_key: Dict[str, dict] = {m["key"]: m for m in manifest["leaves"]}
         dctx = zstandard.ZstdDecompressor() if zstandard is not None else None
 
+        shard_flat = None
+        if shardings is not None:
+            shard_flat = tree_util.leaves(shardings)
         leaves = []
-        for key, _ in _flatten(like):
+        for i, (key, _) in enumerate(_flatten(like)):
             meta = by_key[key]
             payload = (path / meta["file"]).read_bytes()
             if meta["file"].endswith(".zst"):
@@ -330,5 +337,9 @@ class CheckpointManager:
                 raw = payload
             if strict_integrity and (zlib.crc32(raw) & 0xFFFFFFFF) != meta["crc32"]:
                 raise IOError(f"checkpoint corruption in leaf {key} (crc mismatch)")
-            leaves.append(_from_bytes(raw, meta["dtype"], meta["shape"]).to(device))
+            leaf = _from_bytes(raw, meta["dtype"], meta["shape"])
+            if shard_flat is not None:
+                leaves.append(shard_flat[i].place(leaf))
+            else:
+                leaves.append(leaf.to(device))
         return step, tree_util.unflatten(like, leaves)

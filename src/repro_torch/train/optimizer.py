@@ -11,6 +11,13 @@ dtype is configurable: the >300B MoE architectures keep m/v in bf16
 tensors, which is the port's form of buffer donation.  Either way it works
 through large leaves a slice at a time, so that its float32 temporaries
 stay small beside the model's state.
+
+On a mesh the leaves are DTensors.  The update is element-wise, so it runs
+on each leaf's local shard: the parameter, its gradient (reduced onto the
+parameter's placements first) and both moments share one placement, and on
+a mesh of one device the local shard is the whole leaf.  The global norm is
+a DTensor reduction: the shards' partial sums reduced to one replicated
+scalar.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from . import tree as tree_util
 
@@ -65,7 +73,9 @@ def init(cfg: OptimizerConfig, params: Params) -> OptState:
     dt = getattr(torch, cfg.state_dtype)
     leaves = tree_util.leaves(params)
     device = leaves[0].device if leaves else None
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    # a DTensor parameter's moments take its placements
+    zeros = lambda p: (torch.zeros_like(p, dtype=dt) if isinstance(p, DTensor)
+                       else torch.zeros(p.shape, dtype=dt, device=p.device))
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=device),
         m=tree_util.tree_map(zeros, params),
@@ -75,7 +85,23 @@ def init(cfg: OptimizerConfig, params: Params) -> OptState:
 
 def global_norm(tree: Params) -> torch.Tensor:
     leaves = tree_util.leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves))
+    total = sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves)
+    if isinstance(total, DTensor):  # the shards' partial sums -> one replicated scalar
+        total = total.redistribute(total.device_mesh, [Replicate()] * total.device_mesh.ndim)
+    return torch.sqrt(total)
+
+
+def _local(x):
+    """A DTensor's local shard (its whole value when replicated), else ``x``."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _placed_like(g, p):
+    """A DTensor gradient on its parameter's placements (a partial
+    gradient is reduced here)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _decay_mask(path) -> bool:
@@ -95,13 +121,14 @@ def update(
     """One AdamW step.  ``inplace`` overwrites ``params``, ``state.m``,
     ``state.v`` and ``state.step`` and returns them."""
     with torch.no_grad():
+        grads = tree_util.tree_map(_placed_like, grads, params)
         step = state.step.add_(1) if inplace else state.step + 1
-        lr = schedule(cfg, step)
+        lr = schedule(cfg, _local(step))
 
         gnorm = global_norm(grads)
-        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(_local(gnorm), min=1e-9), max=1.0)
         dt = getattr(torch, cfg.state_dtype)
-        stepf = step.to(torch.float32)
+        stepf = _local(step).to(torch.float32)
         bc1 = 1 - cfg.beta1 ** stepf
         bc2 = 1 - cfg.beta2 ** stepf
 
@@ -118,21 +145,33 @@ def update(
             return new_p, m32.to(dt), v32.to(dt)
 
         def leaf(path, p, g, m, v):
+            mesh = p.device_mesh if isinstance(p, DTensor) else None
+            if mesh is not None and any(
+                    not isinstance(t, DTensor) or t.placements != p.placements for t in (g, m, v)):
+                raise ValueError(f"leaf {path}: gradient or moments off the parameter's layout")
+            local = [_local(t) for t in (p, g, m, v)]
+            n = local[0].numel()
             if inplace:
-                out = (p, m, v)
+                out = (local[0], local[2], local[3])
                 if not all(t.is_contiguous() for t in out):
                     raise ValueError(f"in-place update of a non-contiguous leaf {path}")
             else:
-                out = (torch.empty(p.shape, dtype=p.dtype, device=p.device),
-                       torch.empty(p.shape, dtype=dt, device=p.device),
-                       torch.empty(p.shape, dtype=dt, device=p.device))
-            flat_in = [t.reshape(-1) for t in (p, g, m, v)]
+                shape, dev = local[0].shape, local[0].device
+                out = (torch.empty(shape, dtype=p.dtype, device=dev),
+                       torch.empty(shape, dtype=dt, device=dev),
+                       torch.empty(shape, dtype=dt, device=dev))
+            flat_in = [t.reshape(-1) for t in local]
             flat_out = [t.view(-1) for t in out]
             decay = _decay_mask(path)
-            for lo in range(0, p.numel(), _SLICE):
-                hi = min(lo + _SLICE, p.numel())
+            for lo in range(0, n, _SLICE):
+                hi = min(lo + _SLICE, n)
                 for dst, src in zip(flat_out, upd(*(t[lo:hi] for t in flat_in), decay)):
                     dst[lo:hi] = src
+            if inplace:
+                return p, m, v
+            if mesh is not None:
+                out = tuple(DTensor.from_local(t, mesh, p.placements, run_check=False,
+                                               shape=p.shape, stride=p.stride()) for t in out)
             return out
 
         flat = tree_util.flatten_with_path(params)

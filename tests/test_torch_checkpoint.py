@@ -23,8 +23,12 @@ from repro.train import checkpoint as ref_ckpt
 from repro.train import optimizer as ref_opt
 from repro_torch.convert import opt_state_from_jax, params_from_jax
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.sharding.rules import NamedSharding, PartitionSpec as P, device_put
 from repro_torch.train import tree as tree_util
 from repro_torch.train.checkpoint import CheckpointManager
+from torch.distributed.tensor import DTensor
+
+from test_torch_sharding import host_mesh  # noqa: F401  (a fixture)
 
 DTYPES = [("float32", "float32"), ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
 
@@ -178,8 +182,18 @@ def test_async_save_copies_the_leaves_before_it_returns(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_restore_onto_a_mesh_waits_for_the_sharding_slice(tmp_path):
+def test_restore_onto_a_mesh_places_every_leaf(tmp_path, host_mesh):
+    """``restore(shardings=...)``: every leaf bit-equal and a DTensor laid
+    out by its sharding on the mesh; a DTensor tree saves as its values."""
+    tree = {"w": torch.randn(4, 6, generator=torch.Generator().manual_seed(0)),
+            "b": torch.arange(6, dtype=torch.int32).to(torch.bfloat16)}
+    specs = {"w": P("data", "model"), "b": P()}
+    shardings = tree_util.tree_map(lambda s: NamedSharding(host_mesh, s), specs)
     mgr = CheckpointManager(tmp_path, async_save=False, device="cpu")
-    mgr.save(1, {"p": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="sharding"):
-        mgr.restore({"p": torch.ones(2)}, shardings={"p": "mesh"})
+    mgr.save(1, device_put(tree, shardings))
+    step, restored = mgr.restore(tree, shardings=shardings)
+    assert step == 1
+    for name, leaf in restored.items():
+        assert isinstance(leaf, DTensor) and leaf.device_mesh == host_mesh
+        assert leaf.placements == shardings[name].placements
+        assert torch.equal(leaf.full_tensor(), tree[name])

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, nothing of ``repro``, faithful copies.
 
 - ``repro_torch`` imports, builds a linked tape, validates, serves, takes a
-  train step and checkpoints on the CPU in a process where ``jax``,
-  ``repro`` and ``msgpack`` cannot be imported;
+  train step on a host mesh and checkpoints on the CPU in a process where
+  ``jax``, ``repro`` and ``msgpack`` cannot be imported;
 - an AST scan finds no import of either in ``src/repro_torch`` or
   ``chip_smoke.py``;
 - entry points default to CUDA and raise without it;
@@ -59,6 +59,8 @@ COPIED = [
     *(f"configs/{p.name}" for p in sorted((REF / "configs").glob("*.py"))),
     # the training slice
     "train/__init__.py", "data/corpus.py",
+    # the sharding slice: the package's exports, the HLO analyser
+    "sharding/__init__.py", "launch/hlo_analysis.py",
 ]
 
 
@@ -99,11 +101,15 @@ def test_imports_and_runs_without_jax_or_repro():
         import tempfile
         from repro_torch.train import optimizer as opt
         from repro_torch.train.checkpoint import CheckpointManager
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.sharding.rules import device_put
         from repro_torch.train.train_step import make_train_step
         ocfg = opt.OptimizerConfig()
-        step = make_train_step(Model(cfg), ocfg, batch=1, device="cpu")
+        step, (psh, osh, _), _ = make_train_step(Model(cfg), ocfg, make_host_mesh("cpu"),
+                                                 batch=1)
         tokens = torch.arange(8, dtype=torch.int32)[None]
-        params, state, metrics = step(params, opt.init(ocfg, params),
+        params = device_put(params, psh)
+        params, state, metrics = step(params, device_put(opt.init(ocfg, params), osh),
                                       {"tokens": tokens, "labels": tokens})
         with tempfile.TemporaryDirectory() as tmp:
             mgr = CheckpointManager(tmp, async_save=False, device="cpu")
@@ -204,3 +210,23 @@ def test_lint_tape_copy_keeps_the_checks():
         assert inspect.getsource(getattr(port_lint, fn)) == inspect.getsource(
             getattr(ref_lint, fn)
         )
+
+
+def test_if_min_items_null_verdicts_are_the_references():
+    """Reference finding (ROADMAP.md section 3.12): under ``if: {minItems:
+    0}`` the optimised compile accepts ``null`` and the unoptimised one
+    rejects it, in both packages.  ``minItems`` does not apply to ``null``,
+    so ``if`` holds, ``then`` applies and ``null`` is invalid.  The port's
+    copy of the compiler is pinned to the reference's, verdicts included."""
+    from repro.core import CompilerOptions as RefOptions
+    from repro.core import Validator as RefValidator
+    from repro_torch.core import CompilerOptions, Validator
+
+    schema = {"$schema": "https://json-schema.org/draft/2020-12/schema",
+              "if": {"minItems": 0}, "then": {"type": "string"}, "else": True}
+    off = dict(unroll=False, regex_specialize=False, reorder=False, cisc=False, elide=False)
+    for comp, options, validator in ((ref_compile, RefOptions, RefValidator),
+                                     (compile_schema, CompilerOptions, Validator)):
+        assert validator(comp(schema)).is_valid(None) is True
+        slow = validator(comp(schema, options=options(**off)), use_hashing=False)
+        assert slow.is_valid(None) is False

@@ -88,14 +88,15 @@ SUITES = {
     "test_corpus.py": [
         (*_IMPORTS, 2),
     ],
-    # the drills: the port's train step in place of value_and_grad + update,
-    # managers that restore onto the CPU, torch tensors and leaves; the
-    # elastic restore becomes a restore onto a given device (its mesh half
-    # waits for the sharding slice)
+    # the drills: the port's mesh train step on a CPU host mesh in place of
+    # value_and_grad + update, managers that restore onto the CPU, torch
+    # tensors and leaves; the elastic restore onto the port's mesh, with the
+    # port's NamedSharding
     "test_fault_tolerance.py": [
         (*_IMPORTS, 5),
         ("import jax\nimport jax.numpy as jnp\n",
-         "import torch\n\nfrom repro_torch.train import tree as tree_util\n"
+         "import torch\n\nfrom repro_torch.launch.mesh import make_host_mesh, make_mesh\n"
+         "from repro_torch.train import tree as tree_util\n"
          "from repro_torch.train.train_step import make_train_step\n", 1),
         (*_GENERATOR, 1),
         ("    def step_fn(p, s, batch):\n"
@@ -105,22 +106,21 @@ SUITES = {
          "        loss, grads = jax.value_and_grad(loss_fn)(p)\n"
          "        new_p, new_s, m = opt.update(ocfg, grads, s, p)\n"
          "        return new_p, new_s, dict(m, loss=loss)\n",
-         "    step_fn = make_train_step(model, ocfg, batch=2, device=\"cpu\", donate=False,\n"
-         "                              remat=False)\n", 1),
+         '    step_fn, _, _ = make_train_step(model, ocfg, make_host_mesh("cpu"), batch=2,\n'
+         "                                    donate=False, remat=False)\n", 1),
         ("jnp.asarray(t)", "torch.from_numpy(t)", 2),
         ("np.testing.assert_array_equal(np.asarray(a), np.asarray(b))",
          "assert torch.equal(a, b)", 1),
         ("CheckpointManager(tmp_path, ", 'CheckpointManager(tmp_path, device="cpu", ', 9),
         ('jnp.float32(float("nan"))', 'torch.tensor(float("nan"))', 1),
-        ("        from jax.sharding import NamedSharding, PartitionSpec as P\n\n"
-         '        mesh = jax.make_mesh((1, 1), ("data", "model"))\n', "", 1),
-        ('        shardings = {"p": jax.tree.map(\n'
-         '            lambda _: NamedSharding(mesh, P()), params["final_norm"]\n'
-         "        )}\n"
-         '        step, restored = mgr.restore({"p": params["final_norm"]}, shardings=shardings)\n',
-         '        step, restored = mgr.restore({"p": params["final_norm"]}, device="cpu")\n', 1),
+        ("from jax.sharding import NamedSharding, PartitionSpec as P\n",
+         "from repro_torch.sharding.rules import NamedSharding, PartitionSpec as P\n", 1),
+        ("jax.make_mesh((1, 1), (\"data\", \"model\"))",
+         "make_mesh((1, 1), (\"data\", \"model\"), device=\"cpu\")", 1),
+        ("jax.tree.map(", "tree_util.tree_map(", 1),
         ('        assert leaf.sharding.mesh.shape == {"data": 1, "model": 1}\n',
-         '        assert leaf.device.type == "cpu"\n', 1),
+         '        assert leaf.device_mesh.shape == (1, 1)\n'
+         '        assert leaf.device_mesh.mesh_dim_names == ("data", "model")\n', 1),
         ("jax.tree.leaves(", "tree_util.leaves(", 3),
     ],
 }

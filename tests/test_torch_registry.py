@@ -189,20 +189,19 @@ ADAPTED = {
          "        device=device,\n"),
     ],
     # the training slice: the supervisor without its unused jax import; the
-    # driver with a --device (cuda unless told otherwise), the port's
-    # single-device train step, a seeded torch.Generator, tensors on the
-    # device and its own checkpoint directory, never the JAX package's
+    # driver with a --device (cuda unless told otherwise) for its host mesh,
+    # the port's device_put, a seeded torch.Generator, tensors on the device
+    # and its own checkpoint directory, never the JAX package's
     "train/supervisor.py": [("import jax\n", "")],
     "launch/train.py": [
         ('"""Production training driver: ``python -m repro.launch.train --arch <id>``.\n',
          '"""Training driver: ``python -m repro_torch.launch.train --arch <id> [--device cpu]``.\n'),
-        ('Wires together config -> mesh -> sharded train step -> admission pipeline\n',
-         'Wires together config -> train step -> admission pipeline\n'),
         ('On this CPU container it runs reduced configs end-to-end; on a fleet the\n'
          'same driver runs the full configs (the mesh and step are identical to what\n'
          'the dry-run compiles).\n',
-         'It runs on one device, the card unless ``--device cpu`` is given: reduced\n'
-         'configs by default, the published widths with ``--full``.\n'),
+         'It trains on a mesh of one device (``make_host_mesh``), the card unless\n'
+         '``--device cpu`` is given: reduced configs by default, the published\n'
+         'widths with ``--full``.\n'),
         ('import json\n',
          'import json\n'
          'import tempfile\n'),
@@ -223,20 +222,16 @@ ADAPTED = {
          '\n'
          '    from ..configs import get_config\n'
          '    from ..core.batch_executor import resolve_device\n'),
-        ('    from .mesh import make_host_mesh\n',
-         ''),
+        ('    from ..models import Model\n',
+         '    from ..models import Model\n'
+         '    from ..sharding.rules import device_put\n'),
         ('    mesh = make_host_mesh()\n',
-         '    device = resolve_device(args.device)\n'),
-        ('    step, (psh, osh, bsh), _ = make_train_step(\n'
-         '        model, ocfg, mesh, batch=args.batch, donate=False\n'
-         '    )\n'
-         '    params = jax.device_put(model.init(jax.random.PRNGKey(0)), psh)\n'
+         '    device = resolve_device(args.device)\n'
+         '    mesh = make_host_mesh(device)\n'),
+        ('    params = jax.device_put(model.init(jax.random.PRNGKey(0)), psh)\n'
          '    opt_state = jax.device_put(opt.init(ocfg, params), osh)\n',
-         '    step = make_train_step(\n'
-         '        model, ocfg, batch=args.batch, device=device, donate=False\n'
-         '    )\n'
-         '    params = model.init(torch.Generator(device).manual_seed(0))\n'
-         '    opt_state = opt.init(ocfg, params)\n'),
+         '    params = device_put(model.init(torch.Generator(device).manual_seed(0)), psh)\n'
+         '    opt_state = device_put(opt.init(ocfg, params), osh)\n'),
         ('    pipe = ShardedPipeline(schema, records, seq_len=args.seq_len, batch_size=args.batch)\n',
          '    pipe = ShardedPipeline(schema, records, seq_len=args.seq_len, batch_size=args.batch,\n'
          '                           device=device)\n'),

@@ -45,7 +45,8 @@ from repro_torch.models import Model
 from repro_torch.train import optimizer as opt
 from repro_torch.train import tree as tree_util
 from repro_torch.train.checkpoint import CheckpointManager
-from repro_torch.train.train_step import make_train_step
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.train.train_step import _make_device_step, make_train_step
 
 from test_torch_model import _np
 
@@ -284,7 +285,7 @@ def test_three_train_steps_match_the_reference(arch):
     ocfg = opt.OptimizerConfig(state_dtype=cfg.optimizer_state_dtype, **OCFG)
     rocfg = ref_opt.OptimizerConfig(state_dtype=rcfg.optimizer_state_dtype, **OCFG)
     rstep = _ref_step(RefModel(rcfg), rocfg)
-    step = make_train_step(Model(cfg), ocfg, batch=B, device="cpu", donate=False)
+    step = _make_device_step(Model(cfg), ocfg, batch=B, device="cpu", donate=False)
     rstate = ref_opt.init(rocfg, rparams)
     state = opt.init(ocfg, params)
     for i in range(3):
@@ -312,8 +313,8 @@ def test_donate_equals_no_donate(one_thread):
     ocfg = opt.OptimizerConfig(**OCFG)
     copy = lambda tree: tree_util.tree_map(torch.clone, tree)
     data = {"tokens": tokens, "labels": labels}
-    kept = make_train_step(Model(cfg), ocfg, batch=B, device="cpu", donate=False)
-    donated = make_train_step(Model(cfg), ocfg, batch=B, device="cpu", donate=True)
+    kept = _make_device_step(Model(cfg), ocfg, batch=B, device="cpu", donate=False)
+    donated = _make_device_step(Model(cfg), ocfg, batch=B, device="cpu", donate=True)
     a_params, a_state = copy(params), opt.init(ocfg, params)
     b_params, b_state = copy(params), opt.init(ocfg, params)
     given = tree_util.leaves((b_params, b_state))
@@ -334,7 +335,7 @@ def test_donate_equals_no_donate(one_thread):
 def test_train_step_checks_its_batch_and_device():
     cfg, _, params, _, tokens, labels, _ = _setup("granite-3-8b")
     ocfg = opt.OptimizerConfig(**OCFG)
-    step = make_train_step(Model(cfg), ocfg, batch=B + 1, device="cpu")
+    step = _make_device_step(Model(cfg), ocfg, batch=B + 1, device="cpu")
     with pytest.raises(ValueError, match="rows"):
         step(params, opt.init(ocfg, params), {"tokens": tokens, "labels": labels})
 
@@ -367,7 +368,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     cfg = get_config("granite-3-8b").reduced()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (
-        lambda: make_train_step(Model(cfg), opt.OptimizerConfig(), batch=2),
+        lambda: make_train_step(Model(cfg), opt.OptimizerConfig(), make_host_mesh(), batch=2),
         lambda: ShardedPipeline({"type": "object"}, [], batch_size=2),
         lambda: CheckpointManager(tmp_path),
         lambda: CheckpointManager(tmp_path, device="cpu").restore({}, device="cuda"),
@@ -416,7 +417,8 @@ def test_train_driver_frees_its_first_state(monkeypatch, tmp_path):
         return params
 
     def watching_step(self, step, params, opt_state, batch):
-        if step == 0:
+        if step == 0:  # the step's own trees: DTensors over the init's storage
+            first.append(weakref.ref(tree_util.leaves(params)[0]))
             first.append(weakref.ref(tree_util.leaves(opt_state.m)[0]))
         else:
             gc.collect()
@@ -428,4 +430,6 @@ def test_train_driver_frees_its_first_state(monkeypatch, tmp_path):
     with contextlib.redirect_stdout(io.StringIO()):
         train_cli.main(["--arch", "rwkv6-3b", "--steps", "3", "--device", "cpu",
                         "--ckpt-dir", str(tmp_path), "--checkpoint-every", "0"])
-    assert alive == [[False, False], [False, False]]
+    # the init's leaf (its shapes are drawn once more, as fake tensors, by
+    # the mesh step's sharding rules) and the step's own two trees
+    assert len(first) == 4 and alive == [[False] * 4] * 2
