@@ -109,16 +109,36 @@ Phases, each printed on its own lines:
    ``Model.decode_step``; (c) phase 11 (c)'s checkpoint restored onto the
    mesh with ``restore(shardings=...)``: every leaf a DTensor on the mesh,
    bit-equal; (d) ``compressed_psum`` over each mesh axis on NCCL bit-equal
-   to ``int8_dequantize(*int8_quantize(x))``.
+   to ``int8_dequantize(*int8_quantize(x))``;
+13. conformance (run right after phase 7: it needs no LM memory): (a)
+   ``python -m pytest -q -m cuda tests/test_torch_cuda.py
+   tests/test_torch_cuda_suites.py`` in a subprocess (no xdist, the
+   Hypothesis store in a temporary directory): the kernel tests and the JAX
+   package's executor and registry suites adapted to the card, exit 0,
+   every collected test passed, none skipped; (b) the port's conformance
+   runner (``repro_torch.launch.conformance.run_corpus``) with the batched
+   engine on the card in both layouts: no failure, totals and per-file
+   stats equal to a ``device="cpu"`` run, launches one a batched case
+   (dense: ``hash_match`` once a depth iteration); (c) the corpus's 26
+   groups as the endpoints of one registry (``<file stem>.<group index>``),
+   4096 requests drawn with ``random.Random(0)`` (a uniform group, then a
+   uniform test of it), admitted by ``admit_ex`` at ``batch_max_nodes=64``
+   in both layouts, one warm-up and 10 timed calls: every verdict equal to
+   the corpus's, to a CPU registry's (``AdmitCounts`` too) and across
+   layouts, every kernel call of one admission equal to its plain version;
+   median ``admit_ex``, host ms by phase and the sequential fallback's
+   share of them.
 
 Any mismatch or exception exits non-zero.  The last lines are the serve,
-explain, family, train and mesh JSON lines, the kernels JSON line (``launches`` counts the
+explain, family, train, mesh and conformance JSON lines, the kernels JSON line (``launches`` counts the
 path each kernel serves: the CSR main
 path for the first two, the dense admission for ``assertion_eval``;
 ``launches_by_path`` has every path's count: the serve burst's under
 ``serve``, phase 9's 10 timed explain admissions under ``explain``, the
 moonshot burst under ``serve_moe``, phase 11's training run under
-``train``, phase 12's mesh run under ``mesh``; ``hash_match``'s ``dense``
+``train``, phase 12's mesh run under ``mesh``, phase 13's card runs of the
+runner and timed deployment admissions under ``conformance``;
+``hash_match``'s ``dense``
 holds its time, bound and launches in the dense admission,
 ``assertion_eval_window``'s ``admission`` the same in the csr admission),
 the card's name and power limit, and
@@ -698,6 +718,25 @@ def capture_main_inputs(bv, table, ids) -> Dict[str, tuple]:
     return {name: calls[-1] for name, calls in captured.items() if calls}
 
 
+def hold_captured(captured: Dict[str, List[tuple]], where: str) -> Dict[str, int]:
+    """Every captured kernel call against its plain version; the calls
+    checked, by kernel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.assertion_eval import assertion_eval_cuda
+    from repro_torch.kernels.assertion_eval_window import assertion_eval_window_tape_cuda
+    from repro_torch.kernels.hash_match import hash_match_cuda
+
+    pairs = {"hash_match": (hash_match_cuda, ref.hash_match_ref),
+             "assertion_eval_window": (assertion_eval_window_tape_cuda,
+                                       ref.assertion_eval_window_tape_ref),
+             "assertion_eval": (assertion_eval_cuda, ref.assertion_eval_ref)}
+    for name, calls in captured.items():
+        kernel, plain = pairs[name]
+        for args in calls:
+            _check_equal(f"{name} in {where}", kernel(*args), plain(*args))
+    return {name: len(calls) for name, calls in captured.items()}
+
+
 def launch_counts() -> Dict[str, int]:
     from repro_torch.kernels import assertion_eval, assertion_eval_window, hash_match
 
@@ -1057,17 +1096,19 @@ def profile(run: Callable[[], Any], tag: str, warm: bool = True) -> Dict[str, An
             "copy_ms": copy_ms, "kernels": ours}
 
 
-def admission_controller(layout: str, device=None):
-    """An ``AdmissionController`` over a registry of the five gateway
-    endpoints (analysis and link grouping on, as a user builds it)."""
+def admission_controller(layout: str, device=None, schemas=None):
+    """An ``AdmissionController`` over a registry of ``schemas`` by endpoint
+    (the five gateway endpoints unless given; analysis and link grouping
+    on, as a user builds it)."""
     from repro_torch.data.pipeline import AdmissionController
     from repro_torch.registry import SchemaRegistry
     from repro_torch.registry.presets import GATEWAY_SCHEMAS
 
+    schemas = GATEWAY_SCHEMAS if schemas is None else schemas
     registry = SchemaRegistry(layout=layout, device=device)
-    for name, schema in GATEWAY_SCHEMAS.items():
+    for name, schema in schemas.items():
         registry.register(name, schema)
-    return AdmissionController(registry=registry, endpoint=next(iter(GATEWAY_SCHEMAS)),
+    return AdmissionController(registry=registry, endpoint=next(iter(schemas)),
                                batch_max_nodes=MAX_NODES)
 
 
@@ -1075,21 +1116,17 @@ def _verdict_rows(verdicts) -> List[tuple]:
     return [(v.outcome.name, v.valid, v.engine) for v in verdicts]
 
 
-def registry_phase(layout: str, docs, endpoints, oracle) -> Dict[str, Any]:
-    """Registry admission of the gateway mix in one executor layout; returns
-    (besides the numbers) every kernel input of its first call."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.hash_match import hash_match_cuda
-
-    ctrl = admission_controller(layout)  # the default device: cuda
+def registry_phase(layout: str, docs, endpoints, oracle, schemas=None,
+                   tag: str = "registry") -> Dict[str, Any]:
+    """Registry admission of a mix in one executor layout, over a registry of
+    ``schemas`` (the gateway's unless given); returns (besides the numbers)
+    every kernel input of its first call."""
+    ctrl = admission_controller(layout, schemas=schemas)  # the default device: cuda
     reg = ctrl.registry
-    # first call per batch shape (allocator growth), with every hash_match
-    # call held against its plain version (the assertion kernels' calls in
-    # assertion_eval_window_at_admission and assertion_eval_at_main)
+    # first call per batch shape (allocator growth), with every kernel call
+    # held against its plain version
     captured = capture_kernel_inputs(lambda: ctrl.admit_ex(docs, endpoints))
-    for args in captured["hash_match"]:
-        _check_equal(f"hash_match in {layout} admission", hash_match_cuda(*args),
-                     ref.hash_match_ref(*args))
+    checked = hold_captured(captured, f"{tag} {layout} admission")
     torch.cuda.synchronize()
 
     before = ctrl.stats.snapshot()
@@ -1104,43 +1141,211 @@ def registry_phase(layout: str, docs, endpoints, oracle) -> Dict[str, Any]:
     # the AdmitCounts of one call, from the controller's counters over the
     # timed calls (PipelineStats sums every AdmitCounts field it receives)
     counts = {f: int(after[f] - before[f]) // TIMED_LAUNCHES for f in ADMIT_COUNT_FIELDS}
-    n_groups = len({reg.group_of(e).label for e in set(endpoints)})
+    # the link groups launched (an endpoint outside the batched subset has
+    # none: its rows go to the sequential fallback)
+    n_groups = len({g.label for g in map(reg.group_of, set(endpoints)) if g is not None})
     per_call = {
         "hash_match": n_groups * (reg.max_depth if layout == "dense" else 1),
         "assertion_eval_window": n_groups if layout == "csr" else 0,
         "assertion_eval": n_groups if layout == "dense" else 0,
     }
     if launches != {k: v * TIMED_LAUNCHES for k, v in per_call.items()}:
-        raise AssertionError(f"{layout} admission: launches {launches} in {TIMED_LAUNCHES} "
-                             f"calls, want {per_call} per call")
+        raise AssertionError(f"{tag} {layout} admission: launches {launches} in "
+                             f"{TIMED_LAUNCHES} calls, want {per_call} per call")
     verdicts = _verdict_rows(results[0])
     if any(_verdict_rows(r) != verdicts for r in results[1:]):
-        raise AssertionError(f"{layout} admission: repeated calls disagree")
-    cpu = _verdict_rows(admission_controller(layout, device="cpu").admit_ex(docs, endpoints))
+        raise AssertionError(f"{tag} {layout} admission: repeated calls disagree")
+    cpu_ctrl = admission_controller(layout, device="cpu", schemas=schemas)
+    cpu = _verdict_rows(cpu_ctrl.admit_ex(docs, endpoints))
     if cpu != verdicts:
         diff = sum(a != b for a, b in zip(cpu, verdicts))
-        raise AssertionError(f"{layout} admission: {diff} verdicts differ from the CPU registry")
+        raise AssertionError(f"{tag} {layout} admission: {diff} verdicts differ from the "
+                             "CPU registry")
+    cpu_counts = {f: int(cpu_ctrl.stats.snapshot()[f]) for f in ADMIT_COUNT_FIELDS}
+    if cpu_counts != counts:
+        raise AssertionError(f"{tag} {layout} admission: AdmitCounts {counts}, the CPU "
+                             f"registry's {cpu_counts}")
     batched = [i for i, v in enumerate(results[0]) if v.engine == "batched"]
     if not batched:
-        raise AssertionError(f"{layout} admission: no request was decided on the batched path")
+        raise AssertionError(f"{tag} {layout} admission: no request was decided on the "
+                             "batched path")
     wrong = sum(results[0][i].valid != bool(oracle[i]) for i in batched)
     if wrong:
-        raise AssertionError(f"{layout} admission: {wrong} batched verdicts differ from "
-                             "the sequential Validator")
+        raise AssertionError(f"{tag} {layout} admission: {wrong} batched verdicts differ "
+                             "from the sequential Validator")
     admit_ms = statistics.median(times) * 1e3
-    host = host_phases(lambda: ctrl.admit_ex(docs, endpoints), f"registry {layout}", reps=3)
-    prof = profile(lambda: ctrl.admit_ex(docs, endpoints), f"registry {layout}")
-    by_group = collections.Counter(reg.group_of(e).label for e in endpoints)
-    print(f"[registry] layout={layout}: requests by group {dict(sorted(by_group.items()))}; "
+    host = host_phases(lambda: ctrl.admit_ex(docs, endpoints), f"{tag} {layout}", reps=3)
+    prof = profile(lambda: ctrl.admit_ex(docs, endpoints), f"{tag} {layout}")
+    by_group = collections.Counter(getattr(reg.group_of(e), "label", "sequential")
+                                   for e in endpoints)
+    print(f"[{tag}] layout={layout}: requests by group {dict(sorted(by_group.items()))}; "
           f"median admit_ex {admit_ms:.3f} ms over {TIMED_LAUNCHES} calls of {len(docs)} "
           f"requests, {len(docs) / (admit_ms / 1e3):.0f} requests/s; launches per call "
           f"{ {k: v // TIMED_LAUNCHES for k, v in launches.items()} }; AdmitCounts "
-          f"{counts}; verdicts equal to the CPU registry and, for the {len(batched)} "
-          "batched ones, to the sequential Validator")
+          f"{counts}; verdicts and AdmitCounts equal to the CPU registry and, for the "
+          f"{len(batched)} batched verdicts, to the sequential Validator")
     return {"admit_ms": admit_ms, "requests_per_s": len(docs) / (admit_ms / 1e3),
             "launches": launches, "launches_per_call": per_call, "counts": counts,
-            "host_ms_by_phase": host, "profile": prof,
+            "host_ms_by_phase": host, "profile": prof, "kernel_calls_checked": checked,
             "verdicts": verdicts, "captured": captured}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: conformance on the card
+# ---------------------------------------------------------------------------
+
+CONFORMANCE_DIR = ROOT / "tests" / "conformance"
+# the card's own tests: the cuda-marked kernel and executor tests, and the
+# JAX package's executor and registry suites adapted to the card
+CUDA_TESTS = ("tests/test_torch_cuda.py", "tests/test_torch_cuda_suites.py")
+CUDA_TESTS_TIMEOUT = 480
+RUNNER_MAX_DEPTH = 16  # the runner's BatchValidator keeps the default max_depth
+LAYOUTS = ("csr", "dense")
+
+
+def corpus_endpoints() -> Dict[str, dict]:
+    """The conformance corpus's groups (schema and tests) by endpoint name
+    ``<file stem>.<group index>``, in the runner's file order."""
+    groups = {}
+    for path in sorted(CONFORMANCE_DIR.glob("*.json")):
+        for i, group in enumerate(json.loads(path.read_text())):
+            groups[f"{path.stem}.{i}"] = group
+    return groups
+
+
+def corpus_requests(groups, batch: int, seed: int = SEED) -> Tuple[list, List[str], List[bool]]:
+    """``batch`` requests, each a uniformly drawn group and then a uniformly
+    drawn test of it: (documents, endpoints, the corpus's verdicts)."""
+    rng = random.Random(seed)
+    names = list(groups)
+    docs, endpoints, expected = [], [], []
+    for _ in range(batch):
+        name = rng.choice(names)
+        test = rng.choice(groups[name]["tests"])
+        docs.append(test["data"])
+        endpoints.append(name)
+        expected.append(test["valid"])
+    return docs, endpoints, expected
+
+
+def card_tests() -> Dict[str, Any]:
+    """(a) The card's tests as a user runs them: ``pytest -m cuda`` on
+    ``CUDA_TESTS`` in one process, the Hypothesis store in a temporary
+    directory.  Every test the files collect must run and pass."""
+    import xml.etree.ElementTree as ET
+
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = Path(tmp) / "cuda.xml"
+        argv = [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "-p", "no:cacheprovider",
+                "-p", "no:randomly", f"--junitxml={xml}", *CUDA_TESTS]
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "HYPOTHESIS_STORAGE_DIRECTORY": str(Path(tmp) / "hypothesis")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=CUDA_TESTS_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if not xml.exists():
+            raise AssertionError(f"pytest -m cuda exited {proc.returncode} without a report: "
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+        suite = next(ET.parse(xml).getroot().iter("testsuite"))
+    n = {k: int(suite.get(k)) for k in ("tests", "skipped", "failures", "errors")}
+    passed = n["tests"] - n["skipped"] - n["failures"] - n["errors"]
+    summary = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    if (proc.returncode != 0 or n["tests"] == 0 or passed != n["tests"]
+            or "deselected" in summary):
+        raise AssertionError(f"pytest -m cuda: exit {proc.returncode}, {n}, '{summary}': "
+                             f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    print(f"[conformance] (a) pytest -m cuda {' '.join(CUDA_TESTS)}: exit 0, {passed} passed "
+          f"of {n['tests']} collected, 0 skipped, in {seconds:.1f} s")
+    return {"argv": argv[1:], "rc": proc.returncode, "passed": passed, "collected": n["tests"],
+            "skipped": n["skipped"], "seconds": seconds}
+
+
+def corpus_runner() -> Dict[str, Any]:
+    """(b) The port's conformance runner with its batched engine on the card,
+    in both layouts, against the same runner with it on the CPU."""
+    from repro_torch.launch.conformance import run_corpus
+
+    out = {}
+    for layout in LAYOUTS:
+        cpu = run_corpus(device="cpu", layout=layout)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        got = run_corpus(device="cuda", layout=layout)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        if got["failures"] or cpu["failures"]:
+            raise AssertionError(f"conformance runner, {layout}: failures on the card "
+                                 f"{got['failures'][:5]}, on the CPU {cpu['failures'][:5]}")
+        if got["totals"] != cpu["totals"] or got["files"] != cpu["files"]:
+            raise AssertionError(f"conformance runner, {layout}: the card's totals "
+                                 f"{got['totals']} differ from the CPU's {cpu['totals']}")
+        batched = got["totals"]["batched"]
+        calls = batched["passed"] + batched["failed"]  # one validate call a batched case
+        want = {"hash_match": calls * (RUNNER_MAX_DEPTH if layout == "dense" else 1),
+                "assertion_eval_window": calls if layout == "csr" else 0,
+                "assertion_eval": calls if layout == "dense" else 0}
+        if launches != want or not calls:
+            raise AssertionError(f"conformance runner, {layout}: launches {launches}, "
+                                 f"want {want}")
+        print(f"[conformance] (b) runner, {layout}: batched on the card {batched}, equal to "
+              f"the CPU run in every file; naive/interpreter/codegen "
+              f"{[got['totals'][e]['passed'] for e in ('naive', 'interpreter', 'codegen')]} "
+              f"passed; launches {launches}; {seconds:.2f} s")
+        out[layout] = {"totals": got["totals"], "launches": launches, "seconds": seconds}
+    return out
+
+
+def corpus_deployment() -> Dict[str, Any]:
+    """(c) The corpus's 26 groups as the endpoints of one registry, B
+    requests drawn from them admitted in both layouts: every verdict the
+    corpus's, the CPU registry's and the other layout's; every kernel call
+    of one admission equal to its plain version."""
+    groups = corpus_endpoints()
+    schemas = {name: group["schema"] for name, group in groups.items()}
+    docs, endpoints, expected = corpus_requests(groups, BATCH)
+    out, verdicts = {}, {}
+    for layout in LAYOUTS:
+        row = registry_phase(layout, docs, endpoints, expected, schemas=schemas,
+                             tag="conformance")
+        verdicts[layout] = row.pop("verdicts")
+        wrong = sum(v[1] != want for v, want in zip(verdicts[layout], expected))
+        if wrong:
+            raise AssertionError(f"conformance deployment, {layout}: {wrong} verdicts differ "
+                                 "from the corpus")
+        row.pop("captured")
+        host = row["host_ms_by_phase"]
+        row["fallback_share_of_host"] = host.get("fallback.sequential", 0.0) / sum(host.values())
+        print(f"[conformance] (c) {len(schemas)} endpoints, {layout}: median admit_ex "
+              f"{row['admit_ms']:.3f} ms for {len(docs)} requests; batched "
+              f"{row['counts']['batch_validated']}, fallback "
+              f"{row['counts']['fallback_validated']}; the sequential fallback "
+              f"{host.get('fallback.sequential', 0.0):.3f} ms, "
+              f"{100 * row['fallback_share_of_host']:.1f}% of host ms; every verdict the "
+              f"corpus's; kernel calls equal to the plain versions {row['kernel_calls_checked']}")
+        out[layout] = row
+    if verdicts["csr"] != verdicts["dense"]:
+        raise AssertionError("conformance deployment: the csr and dense layouts disagree")
+    print("[conformance] (c) the csr and dense layouts give equal verdicts")
+    return {"endpoints": len(schemas), "batch": len(docs), "seed": SEED,
+            "max_nodes": MAX_NODES, **out}
+
+
+def conformance_phase(smi: str) -> Dict[str, Any]:
+    """Phase 13: (a) the card's pytest run, (b) the conformance runner on the
+    card against the CPU, (c) the corpus as a 26-endpoint deployment."""
+    t0 = time.perf_counter()
+    tests = card_tests()
+    runner = corpus_runner()
+    deployment = corpus_deployment()
+    # the path's launches: the runner's card runs and the deployment's timed
+    # admissions, each counted from zero
+    launches = {name: sum(runner[lay]["launches"][name] + deployment[lay]["launches"][name]
+                          for lay in LAYOUTS) for name in KERNELS}
+    seconds = time.perf_counter() - t0
+    print(f"[conformance] phase 13: {seconds:.1f} s; launches {launches}")
+    return {"card": smi, "tests": tests, "runner": runner, "deployment": deployment,
+            "launches": launches, "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -2502,6 +2707,8 @@ def run() -> int:
         csr_calls["assertion_eval_window"])
     kernels[0]["dense"] = hash_match_at_dense(dense_calls["hash_match"])
     kernels.append(assertion_eval_at_main(dense_calls["assertion_eval"]))
+    # phase 13 needs no LM memory: it runs beside phase 7
+    conformance = conformance_phase(smi)
     serve = serve_phase(docs, endpoints, smi)
     prompt = serve.pop("longest_prompt")
     if len(prompt) < max(RWKV_PROMPTS):
@@ -2525,6 +2732,7 @@ def run() -> int:
             "serve_moe": family["serve_moe"]["launches"][row["name"]],
             "train": train["launches"][row["name"]],
             "mesh": mesh["launches"][row["name"]],
+            "conformance": conformance["launches"][row["name"]],
         }
     kernels[-1]["launches"] = registry["dense"]["launches"]["assertion_eval"]
     kernels[0]["dense"]["launches"] = registry["dense"]["launches"]["hash_match"]
@@ -2542,6 +2750,7 @@ def run() -> int:
     print(json.dumps({"family": family}))
     print(json.dumps({"train": train}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"conformance": conformance}))
     print(json.dumps({"kernels": kernels, "timing_floor": floor}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

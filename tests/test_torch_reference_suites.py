@@ -8,38 +8,13 @@ the reference builds a registry or an engine, and LM parameters from the
 port's ``Model.init`` with a seeded ``torch.Generator`` instead of a JAX
 key.  Everything else -- requests, fault plans, assertions -- is the
 reference's, so the suites follow the reference when it changes.  The
-selected classes, functions and fixtures are collected from here.
+selected classes, functions and fixtures are collected from here; the
+helpers that adapt and load a suite are in ``torch_suites.py``.
 """
 
-import sys
-import types
-from pathlib import Path
-
-TESTS = Path(__file__).resolve().parent
-
-_IMPORTS = ("from repro.", "from repro_torch.")
-_GENERATOR = ("init(jax.random.PRNGKey(0))", "init(torch.Generator().manual_seed(0))")
-
-
-def adapt_suite(text: str, subs) -> str:
-    """``text`` with each ``(old, new, count)`` substitution applied, where
-    ``old`` must occur exactly ``count`` times."""
-    for old, new, count in subs:
-        assert text.count(old) == count, f"{old!r}: {text.count(old)} occurrences, want {count}"
-        text = text.replace(old, new)
-    return text
-
-
-def load_suite(name: str, subs) -> types.ModuleType:
-    """The reference suite ``tests/<name>`` adapted to the port, as a module."""
-    module_name = f"torch_suite_{Path(name).stem}"
-    text = adapt_suite((TESTS / name).read_text(), subs)
-    module = types.ModuleType(module_name)
-    module.__file__ = str(TESTS / name)
-    sys.modules[module_name] = module
-    exec(compile(text, f"{name} (adapted to repro_torch)", "exec"), module.__dict__)
-    return module
-
+from torch_suites import GENERATOR as _GENERATOR
+from torch_suites import IMPORTS as _IMPORTS
+from torch_suites import load_suite
 
 SUITES = {
     "test_pipeline_serve.py": [

@@ -255,21 +255,67 @@ ADAPTED = {
          '    params, opt_state, hist = sup.run(\n'
          '        first.pop("params"), first.pop("opt_state"), itertools.cycle(pipe.batches()),\n'),
     ],
+    # the conformance runner (a copy of scripts/conformance.py): the
+    # batched engine on a device (cuda unless told otherwise) and in a
+    # layout, its own summary file, never the JAX package's
+    "launch/conformance.py": [
+        ("Writes a pass/fail summary to ``results/conformance_summary.json`` (the\n"
+         "CI artifact) and exits non-zero if any engine disagrees with a corpus\n"
+         "expectation.\n",
+         "Writes a pass/fail summary to ``results/conformance_summary_torch.json``\n"
+         "(never the JAX package's ``results/conformance_summary.json``) and exits\n"
+         "non-zero if any engine disagrees with a corpus expectation.  The batched\n"
+         "engine runs on ``--device`` (cuda unless told otherwise):\n"
+         "\n"
+         "    python -m repro_torch.launch.conformance --device cpu|cuda\n"),
+        ("import json\nimport sys\n", "import argparse\nimport json\nimport sys\n"),
+        ("ROOT = Path(__file__).resolve().parents[1]\n",
+         "ROOT = Path(__file__).resolve().parents[3]  # src/repro_torch/launch/ -> the repo\n"),
+        ("from repro.core.batch_executor import BatchValidator  # noqa: E402\n",
+         "from repro_torch.core.batch_executor import BatchValidator, resolve_device  # noqa: E402\n"),
+        ("from repro.", "from repro_torch.", 3),
+        ("def run_corpus() -> dict:\n",
+         'def run_corpus(device=None, layout="csr") -> dict:\n'
+         '    """Every corpus case through the four engines, the batched one on\n'
+         "    ``device`` (cuda unless told otherwise: without CUDA it raises) in\n"
+         '    ``layout``."""\n'
+         "    device = resolve_device(device)\n"),
+        ("BatchValidator(tape, use_pallas=False) if tape is not None else None",
+         "BatchValidator(tape, device=device, layout=layout) if tape is not None else None"),
+        ("def main() -> int:\n    summary = run_corpus()\n",
+         "def main(argv=None) -> int:\n"
+         '    ap = argparse.ArgumentParser(prog="repro_torch.launch.conformance")\n'
+         '    ap.add_argument("--device", default="cuda", help="the batched engine\'s device: cuda or cpu")\n'
+         "    args = ap.parse_args(argv)\n"
+         "    summary = run_corpus(device=args.device)\n"),
+        ('out = RESULTS / "conformance_summary.json"', 'out = RESULTS / "conformance_summary_torch.json"'),
+    ],
 }
 
 
+# an adapted module's reference where it is not the same path in src/repro
+REFERENCE = {"launch/conformance.py": "scripts/conformance.py"}
+
+
 def adapt(text: str, subs) -> str:
-    """The reference's ``text`` with each substitution applied exactly once."""
-    for old, new in subs:
-        assert text.count(old) == 1, f"substitution anchor not unique: {old!r}"
+    """The reference's ``text`` with each ``(old, new[, count])`` substitution
+    applied, where ``old`` occurs exactly ``count`` times (once by default)."""
+    for old, new, *count in subs:
+        want = count[0] if count else 1
+        assert text.count(old) == want, f"substitution anchor {old!r}: {text.count(old)} times"
         text = text.replace(old, new)
     return text
 
 
-@pytest.mark.parametrize("rel", sorted(ADAPTED))
+def adapted_source(rel: str) -> str:
+    """The reference's text of the port's module ``rel``, adapted."""
+    return adapt((ROOT / REFERENCE.get(rel, f"src/repro/{rel}")).read_text(), ADAPTED[rel])
+
+
+# the conformance runner's pin is tested in test_torch_conformance.py
+@pytest.mark.parametrize("rel", sorted(set(ADAPTED) - set(REFERENCE)))
 def test_adapted_module_is_the_reference_with_declared_substitutions(rel):
-    want = adapt((ROOT / "src" / "repro" / rel).read_text(), ADAPTED[rel])
-    assert (ROOT / "src" / "repro_torch" / rel).read_text() == want
+    assert (ROOT / "src" / "repro_torch" / rel).read_text() == adapted_source(rel)
 
 
 # ---------------------------------------------------------------------------
